@@ -1,6 +1,7 @@
 """rAge-k selection in the segmented per-cluster formulation: the port of
-``client_candidates``, ``segment_pack``, ``segmented_age_topk`` and
-``segmented_rage_select`` from ``repro.core.strategies``.
+``client_candidates``, ``segment_pack`` and ``segmented_rage_select``
+from ``repro.core.strategies``. The plain ``segmented_age_topk`` sits
+beside its kernel, as ``kernels.segmented_topk.segmented_age_topk_plain``.
 
 Clients are grouped by cluster into a (C, S) members matrix (client
 order kept within each cluster: the tie-break and disjointness contract),
@@ -14,8 +15,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.segmented_topk import (  # noqa: F401  (oracle)
-    segmented_age_topk_plain as segmented_age_topk)
 
 CANDIDATE_IMPLS = ("sort", "threshold")
 

@@ -43,7 +43,7 @@ from repro_torch.fl import client as C
 from repro_torch.fl.schedule import SchedState, make_scheduler
 from repro_torch.fl.server import aggregate_sparse_fused
 from repro_torch.models import paper_nets as P
-from repro_torch.optim.optimizers import adam, apply_updates, sgd
+from repro_torch.optim.optimizers import adam, apply_updates
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
          "float16": torch.float16}
@@ -196,7 +196,7 @@ class FederatedEngine:
 
     def __init__(self, kind: str, shards: list, test: tuple,
                  hp: RAgeKConfig, *, seed: int = 0, device=None,
-                 params=None, ef: bool = False, global_opt: str = "adam",
+                 params=None, ef: bool = False,
                  selection: str = "segmented", compute: str = "auto",
                  faults=None):
         if hp.method != "rage_k":
@@ -221,9 +221,6 @@ class FederatedEngine:
             raise _todo("ef=True", "items 3 and 5: error feedback")
         if faults is not None:
             raise _todo("faults", "item 13: resilience")
-        if global_opt not in ("adam", "sgd"):
-            raise ValueError(f"global_opt must be 'adam' or 'sgd', "
-                             f"got {global_opt!r}")
         self.device = dev = resolve(device)
         self.hp = hp
         self.kind = kind
@@ -240,7 +237,7 @@ class FederatedEngine:
         self._local_phase = C.make_local_phase(
             apply_loss, self._unflatten, hp.lr, report_r=hp.r,
             report_impl=hp.candidates)
-        self._g_opt = adam(hp.lr) if global_opt == "adam" else sgd(hp.lr)
+        self._g_opt = adam(hp.lr)
         self._scheduler = make_scheduler(hp.schedule, n, device=dev)
         self._wire_dtype = _WIRE[hp.wire_dtype]
         # segmented packing bounds (live cluster count, largest cluster),
