@@ -12,15 +12,24 @@ the last line:
    card, at the fig3 shapes and on edge-case inputs (integers exact,
    floats within the stated tolerance), with device times;
 4. parity: one fig3 round on the card against the same round on the CPU
-   (the plain versions) from the same params and batches;
+   (the plain versions) from the same params and batches, for rAge-k
+   (segmented and scan), CAFe, top-k, dense and rTop-k;
 5. slice: the fig3 rAge-k run, ``FederatedEngine("mlp")`` at the paper's
    hyper-parameters for 20 rounds through the step driver; losses
-   finite, the five label-pair clusters at round 20, and each kernel
-   launched exactly once per round.
+   finite, the five label-pair clusters at round 20, and its three
+   kernels launched exactly once per round (``maghist`` never);
+6. baselines: rTop-k, the paper's Fig. 3 counterpart, for 20 rounds
+   (``maghist`` and ``sparse_aggregate`` once per round, clusters stay
+   singletons), then 5 rounds each of CAFe, top-k, random-k, dense and
+   rAge-k scan, each round checked against its method's kernel launches.
 
-``--profile`` adds ten more rounds under ``torch.profiler`` (host and
-device time per span of the round, the device's idle share, the top
-kernels; tables and the trace in ``build/profile/``).
+Each path's launch counts are set to 0 just before it runs and read just
+after; the kernels' JSON record sums them over the paths.
+
+``--profile`` adds ten more rounds of the rAge-k slice and of the rTop-k
+run under ``torch.profiler`` (host and device time per span of the
+round, the device's idle share, the top kernels; tables and traces in
+``build/profile/``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -42,6 +51,17 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 peak
 FIG3 = dict(r=75, k=10, H=4, M=20, lr=1e-4, batch_size=256)
 PAIRS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4]
+# kernel launches per round of each (method, selection) path
+PER_ROUND = {
+    ("rage_k", "segmented"): {"maghist_batch": 1, "segmented_age_topk": 1,
+                              "sparse_aggregate": 1},
+    ("rage_k", "scan"): {"maghist_batch": 1, "sparse_aggregate": 1},
+    ("rtop_k", "segmented"): {"maghist": 1, "sparse_aggregate": 1},
+    ("cafe", "segmented"): {"maghist": 1, "sparse_aggregate": 1},
+    ("top_k", "segmented"): {"sparse_aggregate": 1},
+    ("random_k", "segmented"): {"sparse_aggregate": 1},
+    ("dense", "segmented"): {},
+}
 SPECIAL = [float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
            -3e-39, 2.0 ** -45, 2.0 ** -40, 2.0 ** -39, 3e38, 1.0, 2.0 ** 24]
 
@@ -118,6 +138,40 @@ def phase_kernels(torch, dev):
         bound_by=by,
         library_ms=device_ms(lambda: torch.bincount(
             ids, minlength=n * MH.NBINS))))
+
+    # maghist: one vector and the batch of the fig3 path, the ragged tails
+    # (1, 4097) and (3, 13), every row holding the SPECIAL values; exact.
+    # threshold_topk, the report it feeds, card against CPU exactly.
+    for shape in ((39_760,), (10, 39_760), (1, 4097), (3, 13)):
+        rows = shape[0] if len(shape) == 2 else 1
+        G = grads(torch, rows, shape[-1], gen, dev).reshape(shape)
+        if not torch.equal(MH.maghist(G), MH.hist_blocks(G)):
+            raise AssertionError(f"maghist differs at {shape}")
+        r = min(75, shape[-1])
+        for a, b in zip(ops.threshold_topk(G, r),
+                        ops.threshold_topk(G.cpu(), r)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"threshold_topk differs at {shape}")
+    G = torch.randn((10, 39_760), generator=gen, device=dev)
+    n, d = G.shape
+    nb = -(-d // MH.BLOCK_D)
+    # the library call counts the same zero-padded blocks
+    Gp = torch.nn.functional.pad(G, (0, nb * MH.BLOCK_D - d))
+    ids = ((torch.arange(n * nb, device=dev).view(n, nb, 1) * MH.NBINS)
+           + MH.exponent_bins(Gp.abs()).view(n, nb, MH.BLOCK_D)).reshape(-1)
+    if not torch.equal(torch.bincount(ids, minlength=n * nb * MH.NBINS)
+                       .view(n, nb, MH.NBINS).int(), MH.maghist(G)):
+        raise AssertionError("maghist differs from its bincount yardstick")
+    b, by = bound(4 * n * d + 4 * n * nb * MH.NBINS, n * d)
+    out.append(dict(
+        name="maghist", route="cuda",
+        source="src/repro_torch/kernels/csrc/maghist_blocks.cu",
+        replaces="src/repro/kernels/maghist.py:57", max_abs_err=0,
+        ms=device_ms(lambda: MH.maghist(G)),
+        plain_ms=device_ms(lambda: MH.hist_blocks(G)), bound_ms=b,
+        bound_by=by,
+        library_ms=device_ms(lambda: torch.bincount(
+            ids, minlength=n * nb * MH.NBINS))))
 
     # segmented_age_topk: fig3 before (10, 1) and after (5, 2) the first
     # recluster, plus ties, taken lanes, invalid slots and r > block size
@@ -204,53 +258,92 @@ def phase_kernels(torch, dev):
 
 def phase_parity(torch, dev, shards, test):
     """One fig3 round on the card and on the CPU from the same params and
-    batches. Indices and ages exactly; floats within rtol=1e-4, atol=1e-6,
-    wider than the CPU tests' 1e-5 because cuBLAS and the CPU BLAS sum
-    float32 products in another order across four dependent Adam steps."""
+    batches, for each method. Indices, ages and request counts (CAFe's
+    cost) exactly; floats within rtol=1e-4, atol=1e-6, wider than the CPU
+    tests' 1e-5 because cuBLAS and the CPU BLAS sum float32 products in
+    another order across four dependent Adam steps. rTop-k draws from
+    each device's own generator, so there the candidate report must be
+    equal and each draw inside its own report."""
     from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core.strategies import topr_candidates
     from repro_torch.fl.engine import FederatedEngine
 
-    hp = RAgeKConfig(**FIG3)
-    card = FederatedEngine("mlp", shards, test, hp, seed=0, device=dev)
-    cpu = FederatedEngine("mlp", shards, test, hp, seed=0, device="cpu")
-    bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
-    mc = card._round_impl(bx, by)
-    mh = cpu._round_impl(bx.cpu(), by.cpu())
-    torch.cuda.synchronize()
-    if not torch.equal(mc["idx"].cpu(), mh["idx"]):
-        raise AssertionError("requested indices differ between card and CPU")
-    if not torch.equal(card.age.cluster_age.cpu(), cpu.age.cluster_age):
-        raise AssertionError("cluster ages differ between card and CPU")
     tol = dict(rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(mc["losses"].cpu(), mh["losses"], **tol)
-    torch.testing.assert_close(mc["g_sum"].cpu(), mh["g_sum"], **tol)
-    torch.testing.assert_close(card.g_params.cpu(), cpu.g_params, **tol)
-    err = float((mc["g_sum"].cpu() - mh["g_sum"]).abs().max())
-    say(f"parity: one fig3 round card == CPU (indices, ages exact; max "
-        f"|g_sum diff| {err:.3e})")
+    for method, selection in (("rage_k", "segmented"), ("rage_k", "scan"),
+                              ("cafe", "segmented"), ("top_k", "segmented"),
+                              ("dense", "segmented"), ("rtop_k", "segmented")):
+        hp = RAgeKConfig(**FIG3, method=method)
+        card, cpu = (FederatedEngine("mlp", shards, test, hp, seed=0,
+                                     device=where, selection=selection)
+                     for where in (dev, "cpu"))
+        bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
+        mc = card._round_impl(bx, by)
+        mh = cpu._round_impl(bx.cpu(), by.cpu())
+        torch.cuda.synchronize()
+        name = f"{method}/{selection}"
+        torch.testing.assert_close(mc["losses"].cpu(), mh["losses"], **tol)
+        if method == "rtop_k":
+            reports = [topr_candidates(m["G"], hp.r, hp.candidates).cpu()
+                       for m in (mc, mh)]
+            if not torch.equal(*reports):
+                raise AssertionError(f"{name}: candidate reports differ")
+            for m, rep in zip((mc, mh), reports):
+                if not (m["idx"].cpu().unsqueeze(-1)
+                        == rep.unsqueeze(1)).any(-1).all():
+                    raise AssertionError(f"{name}: a pick outside the report")
+        else:
+            if method == "dense":
+                if mc["idx"] is not None or mh["idx"] is not None:
+                    raise AssertionError(f"{name}: dense requested indices")
+            elif not torch.equal(mc["idx"].cpu(), mh["idx"]):
+                raise AssertionError(f"{name}: requested indices differ")
+            torch.testing.assert_close(mc["g_sum"].cpu(), mh["g_sum"], **tol)
+            torch.testing.assert_close(card.g_params.cpu(), cpu.g_params,
+                                       **tol)
+        if not (torch.equal(card.age.cluster_age.cpu(), cpu.age.cluster_age)
+                and torch.equal(card.age.freq.cpu(), cpu.age.freq)):
+            raise AssertionError(f"{name}: ages or request counts differ")
+        if method == "rtop_k":
+            say(f"parity: one fig3 {name} round: candidate reports card == "
+                f"CPU, every pick inside its report")
+        else:
+            err = float((mc["g_sum"].cpu() - mh["g_sum"]).abs().max())
+            say(f"parity: one fig3 {name} round card == CPU (indices, ages, "
+                f"counts exact; max |g_sum diff| {err:.3e})")
 
 
-def phase_slice(torch, dev, shards, test):
+def drive(eng, rounds: int, path):
+    """``rounds`` steps of ``eng`` with every launch count set to 0 just
+    before; each round must launch exactly the kernels of ``PER_ROUND[path]``
+    (once each) and no other, with finite losses. Returns (the counts
+    read just after, the rounds' host times, the last round's metrics)."""
     import numpy as np
-    from repro_torch.configs.base import RAgeKConfig
-    from repro_torch.fl.engine import FederatedEngine
     from repro_torch.kernels import build
 
-    torch.cuda.reset_peak_memory_stats()
-    eng = FederatedEngine("mlp", shards, test, RAgeKConfig(**FIG3), seed=0)
     build.reset_launches()
+    want = {k: PER_ROUND[path].get(k, 0) for k in build.LAUNCHES}
     t_rounds = []
-    for t in range(20):
+    for t in range(rounds):
         before = dict(build.LAUNCHES)
         t0 = time.perf_counter()
         m = eng.step()
         t_rounds.append(time.perf_counter() - t0)
         rose = {k: build.LAUNCHES[k] - before[k] for k in before}
-        if any(v != 1 for v in rose.values()):
-            raise AssertionError(f"round {t + 1}: kernel launches {rose}")
+        if rose != want:
+            raise AssertionError(f"{path} round {t + 1}: kernel launches "
+                                 f"{rose}, expected {want}")
         if not np.isfinite(m["losses"]).all():
-            raise AssertionError(f"round {t + 1}: non-finite losses")
-    launches = dict(build.LAUNCHES)
+            raise AssertionError(f"{path} round {t + 1}: non-finite losses")
+    return dict(build.LAUNCHES), t_rounds, m
+
+
+def phase_slice(torch, dev, shards, test):
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = FederatedEngine("mlp", shards, test, RAgeKConfig(**FIG3), seed=0)
+    launches, t_rounds, m = drive(eng, 20, ("rage_k", "segmented"))
     acc = eng.eval_acc()
     peak = torch.cuda.max_memory_allocated()
     if eng.cluster_of.tolist() != PAIRS:
@@ -266,7 +359,43 @@ def phase_slice(torch, dev, shards, test):
         f"recluster {eng.recluster_s * 1e3:.1f} ms); peak device memory "
         f"{peak / 2**20:.1f} MiB")
     say(f"slice: kernel launches {launches}")
-    return launches, eng, statistics.median(t_rounds)
+    return launches, eng, statistics.median(t_rounds), acc
+
+
+def phase_baselines(torch, shards, test, rage_acc: float):
+    """rTop-k for 20 fig3 rounds, then 5 rounds of each other path; every
+    round against its path's kernel launches. Returns the launch counts
+    summed over the paths, the rTop-k engine and its median round in s."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    total = {}
+    rtop = None
+    for method, selection, rounds in (
+            ("rtop_k", "segmented", 20), ("cafe", "segmented", 5),
+            ("top_k", "segmented", 5), ("random_k", "segmented", 5),
+            ("dense", "segmented", 5), ("rage_k", "scan", 5)):
+        eng = FederatedEngine("mlp", shards, test,
+                              RAgeKConfig(**FIG3, method=method), seed=0,
+                              selection=selection)
+        launches, t_rounds, m = drive(eng, rounds, (method, selection))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        name = f"{method}/{selection}"
+        say(f"baselines: {name}: {rounds} rounds, {rounds / sum(t_rounds):.2f}"
+            f" rounds/s over rounds 1-{rounds}, "
+            f"{(rounds - 1) / sum(t_rounds[1:]):.2f} over rounds 2-{rounds} "
+            f"(median round {statistics.median(t_rounds) * 1e3:.2f} ms), "
+            f"final losses mean {float(m['losses'].mean()):.4f}, "
+            f"launches {launches}")
+        if method == "rtop_k":
+            if eng.cluster_of.tolist() != list(range(eng.n)):
+                raise AssertionError(f"rtop_k reclustered: "
+                                     f"{eng.cluster_of.tolist()}")
+            say(f"baselines: accuracy after 20 fig3 rounds: rage_k "
+                f"{rage_acc:.4f}, rtop_k {eng.eval_acc():.4f}")
+            rtop = (eng, statistics.median(t_rounds))
+    return (total, *rtop)
 
 
 SPANS = ("draw", "local_phase", "select", "aggregate", "global_update",
@@ -274,10 +403,11 @@ SPANS = ("draw", "local_phase", "select", "aggregate", "global_update",
 
 
 def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
-    """``--profile``: ``rounds`` more fig3 rounds (after the round-20
-    recluster, so C = 5 clusters of S = 2) under ``torch.profiler``: the
-    round's spans by host and device time, the device's busy share, and
-    the top kernels. Tables and the trace go to ``build/profile/``."""
+    """``--profile``: ``rounds`` more fig3 rounds of ``eng`` (for rAge-k,
+    after the round-20 recluster, so C = 5 clusters of S = 2) under
+    ``torch.profiler``: the round's spans by host and device time, the
+    device's busy share, and the top kernels. Tables and the trace go to
+    ``build/profile/``, named by the engine's method."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,8 +431,9 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
     busy = sum(dev_us(e) for e in kern) / rounds / 1e3
     wall = wall_us / rounds / 1e3
     med = median_round_s * 1e3
-    say(f"profile: {rounds} rounds, {wall:.3f} ms per round with the "
-        f"profiler on; device busy {busy:.3f} ms per round = "
+    method = eng.hp.method
+    say(f"profile {method}: {rounds} rounds, {wall:.3f} ms per round with "
+        f"the profiler on; device busy {busy:.3f} ms per round = "
         f"{100 * busy / wall:.1f}% of that (idle {100 - 100 * busy / wall:.1f}"
         f"%), {100 * busy / med:.1f}% of the unprofiled median round "
         f"{med:.2f} ms")
@@ -324,9 +455,10 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
             f"x{e.count / rounds:6.1f}  {e.key[:80]}")
     out = os.path.join(ROOT, "build", "profile")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_table.txt"), "w") as f:
+    with open(os.path.join(out, f"profile_table_{method}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_cpu_time_total", row_limit=60))
-    prof.export_chrome_trace(os.path.join(out, "profile_trace.json"))
+    prof.export_chrome_trace(os.path.join(out,
+                                          f"profile_trace_{method}.json"))
 
 
 def main() -> int:
@@ -366,12 +498,17 @@ def main() -> int:
     say(f"data: mnist_like 60000/2000 and paper_mnist_split in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_parity(torch, dev, shards, test)
-    launches, eng, median_round_s = phase_slice(torch, dev, shards, test)
-    if "--profile" in sys.argv[1:]:
+    launches, eng, median_round_s, acc = phase_slice(torch, dev, shards,
+                                                     test)
+    profile = "--profile" in sys.argv[1:]
+    if profile:
         phase_profile(torch, eng, median_round_s)
+    base, rtop, rtop_median_s = phase_baselines(torch, shards, test, acc)
+    if profile:
+        phase_profile(torch, rtop, rtop_median_s)
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k["name"]] + base[k["name"]]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,24 @@
-"""rAge-k selection in the segmented per-cluster formulation: the port of
-``client_candidates``, ``segment_pack`` and ``segmented_rage_select``
-from ``repro.core.strategies``. The plain ``segmented_age_topk`` sits
-beside its kernel, as ``kernels.segmented_topk.segmented_age_topk_plain``.
+"""Index-selection strategies: the port of ``repro.core.strategies``.
 
-Clients are grouped by cluster into a (C, S) members matrix (client
-order kept within each cluster: the tie-break and disjointness contract),
-the in-cluster recursion runs over member positions only, and clusters
-run in parallel (one CUDA block each on the card).
+Each method is a class with ``select(g, state) -> (idx, vals, state)``
+for one (d,) vector and ``select_batch(G, state)`` for the (N, d) client
+batch, written over the last axis so the batch is one call, not a loop.
+``state`` is the (d,) or (N, d) int32 age rows for rAge-k, the (age,
+cost) pair for CAFe, a ``torch.Generator`` for the stochastic baselines
+(the reference's PRNG key; the draws differ, the semantics do not) and
+``()`` for the deterministic ones. Every ranking is a stable descending
+sort, as the stable ``lax.top_k``: ties go to the lower position.
+
+rAge-k's cluster-coordinated selection is segmented: clients are grouped
+by cluster into a (C, S) members matrix (client order kept within each
+cluster: the tie-break and disjointness contract), the in-cluster
+recursion runs over member positions only, and clusters run in parallel
+(one CUDA block each on the card). The plain ``segmented_age_topk`` sits
+beside its kernel, as ``kernels.segmented_topk.segmented_age_topk_plain``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -17,6 +26,210 @@ import torch
 from repro_torch.kernels import ops
 
 CANDIDATE_IMPLS = ("sort", "threshold")
+STRATEGIES = ("rage_k", "rtop_k", "top_k", "random_k", "dense", "cafe")
+
+
+def _stable_topk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest along the last axis, ties to the lower
+    position (``lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def topr_candidates(g: torch.Tensor, r: int,
+                    impl: str = "sort") -> torch.Tensor:
+    """Top-r magnitude candidate report of one vector (d,) or of each row
+    of (N, d): |g|-descending int32 indices, ties to the lower index.
+    'threshold' is the two-pass histogram plane (``ops.threshold_topk``:
+    one ``maghist`` launch for all rows on the card), 'sort' the full
+    stable sort; both give the same indices for NaN-free g."""
+    if impl == "threshold":
+        return ops.threshold_topk(g, r)[1]
+    if impl != "sort":
+        raise ValueError(f"candidates must be one of {CANDIDATE_IMPLS}, "
+                         f"got {impl!r}")
+    return _stable_topk(g.to(torch.float32).abs(), r).to(torch.int32)
+
+
+def age_select(cand: torch.Tensor, cand_age: torch.Tensor, k: int):
+    """Paper Algorithm 2 inner step: the k highest-age candidates. cand:
+    (..., r) indices ordered by decreasing |g|; cand_age: their ages
+    (excluded candidates pre-masked to -1). Age ties go to the larger
+    magnitude. Returns (positions into cand, indices)."""
+    sel = _stable_topk(cand_age, k)
+    return sel, cand.gather(-1, sel)
+
+
+def _draw(gen, lead: tuple, n: int, k: int, device) -> torch.Tensor:
+    """k distinct positions of range(n), uniform, per leading row, from
+    ``gen`` (int64)."""
+    if not isinstance(gen, torch.Generator):
+        raise ValueError("a stochastic strategy draws from an explicit "
+                         "torch.Generator (a shared default would make "
+                         f"every client draw the same), got {gen!r}")
+    w = torch.ones((*lead, n), device=device)
+    return torch.multinomial(w, k, replacement=False, generator=gen)
+
+
+def _reset_picked(age: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Eq. (2): every age advances by one, the picked ones reset to 0."""
+    return (age + 1).scatter(-1, idx, 0)
+
+
+@dataclass(frozen=True)
+class Dense:
+    """No compression: every client uploads the full gradient."""
+
+    name: str = "dense"
+    k: int = 0
+
+    def select(self, g, state):
+        idx = torch.arange(g.shape[-1], dtype=torch.int32, device=g.device)
+        return idx.expand(g.shape), g, state
+
+    select_batch = select
+
+
+@dataclass(frozen=True)
+class TopK:
+    """Classic top-k magnitude sparsification [Lin et al. 2018]."""
+
+    k: int
+    name: str = "top_k"
+
+    def select(self, g, state):
+        idx = _stable_topk(g.to(torch.float32).abs(), self.k)
+        return idx.to(torch.int32), g.gather(-1, idx), state
+
+    select_batch = select
+
+
+@dataclass(frozen=True)
+class RandomK:
+    """Uniform random-k (exploration-only baseline). State: a
+    ``torch.Generator``, one for the whole batch."""
+
+    k: int
+    name: str = "random_k"
+
+    def select(self, g, gen):
+        idx = _draw(gen, g.shape[:-1], g.shape[-1], self.k, g.device)
+        return idx.to(torch.int32), g.gather(-1, idx), gen
+
+    select_batch = select
+
+
+@dataclass(frozen=True)
+class RTopK:
+    """rTop-k [Barnes et al. 2020]: random k of the top-r magnitudes.
+    State: a ``torch.Generator``, one for the whole batch."""
+
+    r: int
+    k: int
+    name: str = "rtop_k"
+    candidates: str = "sort"
+
+    def select(self, g, gen):
+        cand = topr_candidates(g, self.r, self.candidates)
+        pick = _draw(gen, g.shape[:-1], self.r, self.k, g.device)
+        idx = cand.gather(-1, pick)
+        return idx, g.gather(-1, idx.to(torch.int64)), gen
+
+    select_batch = select
+
+
+@dataclass(frozen=True)
+class RAgeK:
+    """Paper Algorithm 2: k highest-AGE indices of the top-r magnitude
+    candidates; eq. (2) resets requested ages, ages the rest. State: the
+    (d,) int32 age vector, or (N, d) rows in the batch."""
+
+    r: int
+    k: int
+    name: str = "rage_k"
+    candidates: str = "sort"
+
+    def select(self, g, age, exclude=None):
+        cand = topr_candidates(g, self.r, self.candidates).to(torch.int64)
+        cand_age = age.gather(-1, cand).to(torch.int32)
+        if exclude is not None:
+            cand_age = torch.where(exclude.gather(-1, cand), -1, cand_age)
+        _, idx = age_select(cand, cand_age, self.k)
+        return idx.to(torch.int32), g.gather(-1, idx), _reset_picked(age, idx)
+
+    def select_batch(self, G, state):
+        """Uncoordinated batch: one independent age row per client.
+        Cluster-coordinated selection (shared age, disjoint requests) is
+        :meth:`select_segmented`."""
+        return self.select(G, state)
+
+    def select_segmented(self, G, cluster_age, cluster_of, *,
+                         num_segments: int | None = None,
+                         max_seg: int | None = None, disjoint: bool = True,
+                         cands=None, d: int | None = None):
+        """Cluster-coordinated batched selection; see
+        :func:`segmented_rage_select`."""
+        return segmented_rage_select(
+            G, cluster_age, cluster_of, r=self.r, k=self.k,
+            num_segments=num_segments, max_seg=max_seg, disjoint=disjoint,
+            cands=cands, candidates=self.candidates, d=d)
+
+
+@dataclass(frozen=True)
+class CAFeAgeK:
+    """CAFe-style cost-and-age aware variant: pick the k candidates
+    maximizing ``age - lam * cost`` among the top-r magnitudes, where
+    ``cost`` counts the uploads an index already made. ``lam = 0`` is
+    per-client rAge-k. State: ((d,) int32 age, (d,) int32 cost), or
+    (N, d) rows of each in the batch."""
+
+    r: int
+    k: int
+    lam: float = 0.1
+    name: str = "cafe"
+    candidates: str = "sort"
+
+    def select(self, g, state):
+        age, cost = state
+        cand = topr_candidates(g, self.r, self.candidates).to(torch.int64)
+        # The reference's jitted program contracts age - lam * cost into
+        # one fused multiply-add, so the score is rounded to float32 once
+        # (a two-op form rounds lam * cost first, and can turn a 1-ulp gap
+        # into a tie). float64 holds the float32 product and difference
+        # exactly here, so one rounding to float32 gives the same bits.
+        lam = float(torch.tensor(self.lam, dtype=torch.float32))
+        a = age.gather(-1, cand).to(torch.float32).to(torch.float64)
+        c = cost.gather(-1, cand).to(torch.float32).to(torch.float64)
+        score = (a - lam * c).to(torch.float32)
+        idx = cand.gather(-1, _stable_topk(score, self.k))
+        new_cost = cost.scatter_add(-1, idx,
+                                    torch.ones_like(idx, dtype=cost.dtype))
+        return (idx.to(torch.int32), g.gather(-1, idx),
+                (_reset_picked(age, idx), new_cost))
+
+    select_batch = select
+
+
+def make_strategy(method: str, *, r: int = 0, k: int = 0, lam: float = 0.1,
+                  candidates: str = "sort"):
+    """Config-string factory over :data:`STRATEGIES`; ``lam`` is the CAFe
+    cost weight and ``candidates`` the top-r candidate plane ('sort' |
+    'threshold') of the r-candidate methods."""
+    if candidates not in CANDIDATE_IMPLS:
+        raise ValueError(f"candidates must be one of {CANDIDATE_IMPLS}, "
+                         f"got {candidates!r}")
+    if method == "rage_k":
+        return RAgeK(r=r, k=k, candidates=candidates)
+    if method == "rtop_k":
+        return RTopK(r=r, k=k, candidates=candidates)
+    if method == "top_k":
+        return TopK(k=k)
+    if method == "random_k":
+        return RandomK(k=k)
+    if method == "dense":
+        return Dense()
+    if method == "cafe":
+        return CAFeAgeK(r=r, k=k, lam=lam, candidates=candidates)
+    raise ValueError(f"unknown method {method!r}")
 
 
 class SegmentedSelection(NamedTuple):
@@ -36,16 +249,12 @@ def client_candidates(G: torch.Tensor, r: int,
                       impl: str = "sort") -> torch.Tensor:
     """Per-client top-r magnitude candidate report, |g|-descending with
     ties to the lower index: (N, d) -> (N, r) int32. 'threshold' is the
-    histogram two-pass plane (``ops.threshold_topk_batch``), 'sort' the
-    full stable sort; both give the same indices for NaN-free G."""
+    histogram two-pass plane over whole rows (``ops.threshold_topk_batch``,
+    the ``maghist_batch`` kernel on the card), 'sort' the full stable
+    sort; both give the same indices for NaN-free G."""
     if impl == "threshold":
         return ops.threshold_topk_batch(G, r)
-    if impl != "sort":
-        raise ValueError(f"candidates must be one of {CANDIDATE_IMPLS}, "
-                         f"got {impl!r}")
-    idx = torch.sort(G.to(torch.float32).abs(), dim=1, descending=True,
-                     stable=True).indices
-    return idx[:, :r].to(torch.int32)
+    return topr_candidates(G, r, impl)
 
 
 def segment_pack(cluster_of: torch.Tensor, num_segments: int,

@@ -1,23 +1,30 @@
-"""FederatedEngine, the synchronous rAge-k round (paper Algorithm 1): the
-port of ``repro.fl.engine`` for one path, the fig3 setting's: the MNIST
-MLP, full participation, the dense age layout, segmented selection, the
-threshold (or sort) candidate report, masked compute and the step driver.
+"""FederatedEngine, the synchronous round (paper Algorithm 1): the port of
+``repro.fl.engine`` for the fig3 setting's paths: the MNIST MLP, full
+participation, the dense age layout, every selection method of
+``make_strategy``, the threshold (or sort) candidate report, masked
+compute and the step driver.
 
-One round, all on the engine's device:
+One rAge-k round, all on the engine's device:
 
 1. draw each client's H batches from the device shard store;
 2. run H Adam steps per client, keep the flat last-step gradient and its
    top-r candidate report (the ``maghist_batch`` kernel on the card);
 3. pick k indices per client by cluster age, disjoint within a cluster
-   (the ``segmented_age_topk`` kernel);
-4. apply the closed-form eq.-(2) age update and count requests (eq. 3);
-5. sum the sparse uploads in the segmented layout (the
-   ``sparse_aggregate`` kernel) and take a global Adam step.
+   (``selection='segmented'``: the ``segmented_age_topk`` kernel;
+   ``'scan'``: the sequential reference :func:`rage_select`);
+4. apply the eq.-(2) age update and count requests (eq. 3);
+5. sum the sparse uploads (the ``sparse_aggregate`` kernel) and take a
+   global Adam step.
+
+The other methods replace steps 2-4 by their strategy's ``select_batch``
+on the (N, d) gradients: rTop-k and CAFe take their candidate report
+there (the ``maghist`` kernel, one launch for all clients), top-k and
+random-k need none, and dense uploads everything (no kernel at all).
 
 Every M rounds the host pulls the (N, d) request counts, runs DBSCAN and
-merges or resets the cluster ages. The engine updates its state in
-place, round by round; the reference threads it through a pure jitted
-function instead.
+merges or resets the cluster ages (rAge-k only). The engine updates its
+state in place, round by round; the reference threads it through a pure
+jitted function instead.
 
 Options of the reference that this path does not take raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -36,12 +43,13 @@ from repro_torch.configs.base import RAgeKConfig
 from repro_torch.core.age import AgeState
 from repro_torch.core.clustering import cluster_clients, connectivity_matrix
 from repro_torch.core.compression import bytes_per_index, bytes_per_round
-from repro_torch.core.strategies import segmented_rage_select
+from repro_torch.core.strategies import (age_select, make_strategy,
+                                         segmented_rage_select)
 from repro_torch.data.pipeline import DeviceShardStore
 from repro_torch.device import resolve
 from repro_torch.fl import client as C
 from repro_torch.fl.schedule import SchedState, make_scheduler
-from repro_torch.fl.server import aggregate_sparse_fused
+from repro_torch.fl.server import aggregate_sparse, aggregate_sparse_fused
 from repro_torch.models import paper_nets as P
 from repro_torch.optim.optimizers import adam, apply_updates
 
@@ -127,6 +135,53 @@ def member_age_row(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out[:d]
 
 
+def select_member_topk(cluster_age: torch.Tensor, taken: torch.Tensor | None,
+                       cand: torch.Tensor, cl: torch.Tensor, *,
+                       k: int) -> torch.Tensor:
+    """One member's age-top-k pick: ``cand`` (r,) int64 candidates, ``cl``
+    (1,) its cluster id; candidates in the cluster's ``taken`` row (None:
+    not disjoint) read age -1. Age ties go to the larger magnitude."""
+    ages = cluster_age.index_select(0, cl)[0].gather(0, cand)
+    if taken is not None:
+        ages = torch.where(taken.index_select(0, cl)[0].gather(0, cand), -1,
+                           ages)
+    return age_select(cand, ages, k)[1]
+
+
+def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
+                disjoint: bool = True):
+    """Algorithm 1 steps 2-3 + eq. (2), sequentially over clients: the
+    reference the segmented plane is pinned to (``selection='scan'``).
+
+    Clients go in order; within a cluster, indices already requested this
+    round are excluded for the later members (disjointness, §II). Every
+    client reads round-start ages; eq. (2) then applies member by member
+    (+1 per member, requested set to 0). ``cands`` is the (N, r) report.
+    Every client takes part. Returns (idx (N, k) int32, new
+    DeviceAgeState)."""
+    n = cands.shape[0]
+    cands = cands.to(torch.int64)
+    cl = age.cluster_of.to(torch.int64)
+    taken = (torch.zeros(age.cluster_age.shape, dtype=torch.bool,
+                         device=cands.device) if disjoint else None)
+    rows = []
+    for i in range(n):
+        idx_i = select_member_topk(age.cluster_age, taken, cands[i],
+                                   cl[i:i + 1], k=k)
+        if disjoint:
+            taken[cl[i:i + 1], idx_i] = True
+        rows.append(idx_i)
+    idx = torch.stack(rows)
+    cluster_age = age.cluster_age.clone()
+    for i in range(n):
+        row = cluster_age.index_select(0, cl[i:i + 1])[0]
+        cluster_age.index_copy_(0, cl[i:i + 1],
+                                member_age_row(row, idx[i]).unsqueeze(0))
+    freq = age.freq.scatter_add(1, idx, torch.ones_like(age.freq[:, :k]))
+    return idx.to(torch.int32), age._replace(cluster_age=cluster_age,
+                                             freq=freq)
+
+
 def apply_global(g_opt, g_sum, g_params, g_opt_state):
     """The PS's global update from an aggregated flat gradient."""
     updates, g_opt_state = g_opt.update(g_sum, g_opt_state, g_params)
@@ -199,13 +254,7 @@ class FederatedEngine:
                  params=None, ef: bool = False,
                  selection: str = "segmented", compute: str = "auto",
                  faults=None):
-        if hp.method != "rage_k":
-            raise _todo(f"method={hp.method!r}", "item 6: the other "
-                        "selection methods")
-        if selection == "scan":
-            raise _todo("selection='scan'", "item 6: the sequential "
-                        "rage_select reference")
-        if selection != "segmented":
+        if selection not in ("scan", "segmented"):
             raise ValueError(f"selection must be 'scan' or 'segmented', "
                              f"got {selection!r}")
         if compute == "gathered":
@@ -234,9 +283,20 @@ class FederatedEngine:
         self.g_params = C.flatten_tree(params).to(device=dev,
                                                   dtype=torch.float32)
         self.d = d = self.g_params.shape[0]
+        # rage_k's 'segmented' (per-cluster parallel) or 'scan' (the
+        # sequential reference, equal to it)
+        self._selection = selection
+        self._strategy = make_strategy(hp.method, r=hp.r, k=hp.k,
+                                       lam=hp.cafe_lam,
+                                       candidates=hp.candidates)
+        # rage_k takes its top-r report in the local phase; the other
+        # r-candidate methods take theirs in their strategy
         self._local_phase = C.make_local_phase(
-            apply_loss, self._unflatten, hp.lr, report_r=hp.r,
+            apply_loss, self._unflatten, hp.lr,
+            report_r=hp.r if hp.method == "rage_k" else None,
             report_impl=hp.candidates)
+        # the draws of rtop_k and random_k
+        self._gen = torch.Generator(device=dev).manual_seed(seed + 99)
         self._g_opt = adam(hp.lr)
         self._scheduler = make_scheduler(hp.schedule, n, device=dev)
         self._wire_dtype = _WIRE[hp.wire_dtype]
@@ -258,9 +318,17 @@ class FederatedEngine:
         self.samp = self._store.init_state()
         self._eval_sets = build_eval_sets(shards, test, device=dev)
 
-        # uplink: k values + indices, plus the top-r candidate report
-        self._per_client_bytes = (bytes_per_round(
-            hp.k, d, wire_dtype=hp.wire_dtype) + hp.r * bytes_per_index(d))
+        # uplink per client per round: the whole gradient (dense), or k
+        # values + indices, plus the top-r candidate report uploaded for
+        # PS selection (rage_k, cafe)
+        if hp.method == "dense":
+            self._per_client_bytes = bytes_per_round(
+                0, d, dense=True, wire_dtype=hp.wire_dtype)
+        else:
+            self._per_client_bytes = bytes_per_round(
+                hp.k, d, wire_dtype=hp.wire_dtype)
+            if hp.method in ("rage_k", "cafe"):
+                self._per_client_bytes += hp.r * bytes_per_index(d)
         self.cum_bytes = 0
         self.device_s = 0.0
         self.recluster_s = 0.0
@@ -270,11 +338,45 @@ class FederatedEngine:
         """The global parameters as a tree of views."""
         return self._unflatten(self.g_params)
 
+    def _select(self, G: torch.Tensor, cands, plan):
+        """Step 3 for the engine's method: (idx (N, k) int32, or None for
+        dense; the SegmentedSelection of rage_k's segmented plane, or
+        None). Updates the age state in place."""
+        hp, d = self.hp, self.d
+        seg = None
+        if hp.method == "rage_k":
+            if self._selection == "segmented":
+                idx, self.age, seg = rage_select_segmented(
+                    self.age, r=hp.r, k=hp.k, cands=cands, d=d,
+                    num_segments=self._num_seg,
+                    max_seg=min(self._max_seg, plan.m),
+                    disjoint=hp.disjoint_in_cluster)
+            else:
+                idx, self.age = rage_select(self.age, k=hp.k, cands=cands,
+                                            disjoint=hp.disjoint_in_cluster)
+        elif hp.method == "cafe":
+            # per-client cost-and-age selection: cluster_age doubles as the
+            # per-client age rows (clusters stay singletons: no recluster
+            # on this method) and freq holds the cumulative cost
+            idx, _, (ca, cost) = self._strategy.select_batch(
+                G, (self.age.cluster_age, self.age.freq))
+            self.age = self.age._replace(cluster_age=ca, freq=cost)
+        elif hp.method == "dense":
+            return None, None
+        elif hp.method in ("rtop_k", "random_k"):
+            idx, _, _ = self._strategy.select_batch(G, self._gen)
+        else:                                       # top_k, deterministic
+            idx, _, _ = self._strategy.select_batch(G, ())
+        # clients outside the round request nothing: sentinel-d rows, set
+        # in this one place so that no method can forget them
+        return torch.where(plan.active.unsqueeze(1), idx, d), seg
+
     def _round_impl(self, bx: torch.Tensor, by: torch.Tensor) -> dict:
         """One global round from the clients' batches (bx (N, H, B, ...),
         by (N, H, B)). Updates the engine state in place and returns the
-        round's device tensors: losses (N,), idx (N, k), the aggregated
-        gradient g_sum (d,), and the participation and age scalars."""
+        round's device tensors: losses (N,), the last-step gradients G
+        (N, d), idx (N, k) (None for dense), the aggregated gradient g_sum
+        (d,), and the participation and age scalars."""
         hp, n, d = self.hp, self.n, self.d
         plan = self._scheduler.plan(self.sched)
         with record_function("local_phase"):
@@ -282,23 +384,28 @@ class FederatedEngine:
                 self.params_s, self.opt_s, bx, by)
 
         with record_function("select"):
-            idx, self.age, seg = rage_select_segmented(
-                self.age, r=hp.r, k=hp.k, cands=cands, d=d,
-                num_segments=self._num_seg,
-                max_seg=min(self._max_seg, plan.m),
-                disjoint=hp.disjoint_in_cluster)
+            idx, seg = self._select(G, cands, plan)
         with record_function("aggregate"):
-            vals = G.gather(1, idx.to(torch.int64)).to(self._wire_dtype)
-            vals = vals.to(G.dtype)
-            # the segmented layout feeds aggregation directly: padded
-            # member slots carry the sentinel index d, which the kernel
-            # drops
-            ok = (seg.members < n).unsqueeze(-1)
-            seg_vals = torch.where(
-                ok, vals[seg.members.clamp(max=n - 1).to(torch.int64)], 0.0)
-            g_sum, _ = aggregate_sparse_fused(
-                seg.idx, seg_vals, torch.zeros(d, dtype=torch.int32,
-                                               device=self.device))
+            if idx is None:
+                # dense: every taking part client uploads G in wire form
+                gw = G.to(self._wire_dtype).to(G.dtype)
+                g_sum = torch.where(plan.active.unsqueeze(1), gw, 0.0).sum(0)
+            else:
+                vals = G.gather(1, idx.to(torch.int64).clamp(max=d - 1))
+                vals = vals.to(self._wire_dtype).to(G.dtype)
+            if seg is not None:
+                # the segmented layout feeds aggregation directly: padded
+                # member slots carry the sentinel index d, which the
+                # kernel drops
+                ok = (seg.members < n).unsqueeze(-1)
+                seg_vals = torch.where(
+                    ok, vals[seg.members.clamp(max=n - 1).to(torch.int64)],
+                    0.0)
+                g_sum, _ = aggregate_sparse_fused(
+                    seg.idx, seg_vals, torch.zeros(d, dtype=torch.int32,
+                                                   device=self.device))
+            elif idx is not None:
+                g_sum = aggregate_sparse(idx, vals, d)
         with record_function("global_update"):
             self.g_params, self.g_opt_state = apply_global(
                 self._g_opt, g_sum, self.g_params, self.g_opt_state)
@@ -312,6 +419,7 @@ class FederatedEngine:
         ca_live = torch.where(live.unsqueeze(1), self.age.cluster_age, 0)
         return {
             "losses": losses,
+            "G": G,
             "idx": idx,
             "g_sum": g_sum,
             "n_active": plan.active.sum(),
@@ -324,7 +432,8 @@ class FederatedEngine:
 
     def step(self) -> dict:
         """Advance one global round. Returns host values: losses (N,),
-        idx (N, k), n_active, aoi_mean, aoi_peak, age_mean, age_peak."""
+        idx (N, k) (None for dense), n_active, aoi_mean, aoi_peak,
+        age_mean, age_peak."""
         t0 = time.perf_counter()
         with record_function("draw"):
             bx, by, self.samp = self._store.draw(self._data, self.samp,
@@ -332,7 +441,8 @@ class FederatedEngine:
         m = self._round_impl(bx, by)
         with record_function("metrics"):
             out = {"losses": m["losses"].cpu().numpy(),
-                   "idx": m["idx"].cpu().numpy(),
+                   "idx": (m["idx"].cpu().numpy()
+                           if m["idx"] is not None else None),
                    "n_active": int(m["n_active"]),
                    "aoi_mean": float(m["aoi_mean"]),
                    "aoi_peak": int(m["aoi_peak"]),
@@ -341,7 +451,7 @@ class FederatedEngine:
         self.device_s += time.perf_counter() - t0
         self.round_idx += 1
         self.cum_bytes += self._per_client_bytes * out["n_active"]
-        if self.round_idx % self.hp.M == 0:
+        if self.hp.method == "rage_k" and self.round_idx % self.hp.M == 0:
             with record_function("recluster"):
                 self._recluster()
         return out
@@ -368,7 +478,9 @@ class FederatedEngine:
 
     @property
     def freq_matrix(self) -> np.ndarray:
-        """The cumulative (N, d) request-frequency matrix (eq.-3 inputs)."""
+        """The cumulative (N, d) request-frequency matrix (eq.-3 inputs).
+        CAFe's cost rows stand in for it, as the reference stores them
+        there; methods that never request return zeros."""
         return self.age.freq.cpu().numpy()
 
     @torch.no_grad()

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argument types (every pointer and the stream are void*)
 SIGNATURES = {
+    "maghist": [P, P, I, I, P],
     "maghist_batch": [P, P, I, I, P],
     "segmented_age_topk": [P, P, P, P, I, I, I, I, I, P],
     "sparse_aggregate": [P, P, P, P, P, I, I, P],

@@ -15,22 +15,14 @@
 // Integer sums do not depend on order, so the result is deterministic.
 // The ragged tail of d is masked by the loop bound, not padded. The
 // output must be zeroed by the caller.
-#include <cuda_runtime.h>
+#include "exponent_bins.cuh"
 
 namespace {
 
-constexpr int kBins = 64;
-constexpr int kOffset = 40;      // exponent -40 .. +23 covered
+using exphist::exponent_bin;
+using exphist::kBins;
 constexpr int kThreads = 256;
-constexpr int kChunk = 4096;     // elements of one row per block
-
-// bin = clip(e - 127 + 40, 0, 63) with e the biased exponent of |x|;
-// NaN -> 0, +/-inf -> 63 (e = 255 clips), zeros and denormals -> 0.
-__device__ __forceinline__ int exponent_bin(float x) {
-  const int e = (__float_as_int(fabsf(x)) >> 23) & 0xFF;
-  const int b = min(max(e - 127 + kOffset, 0), kBins - 1);
-  return x != x ? 0 : b;   // NaN
-}
+constexpr int kChunk = exphist::kBlockD;
 
 __global__ void __launch_bounds__(kThreads)
 maghist_batch_kernel(const float* __restrict__ g, int* __restrict__ hist,

@@ -54,6 +54,14 @@ def maghist_batch(G: torch.Tensor) -> torch.Tensor:
     return MH.hist_rows(G)
 
 
+def maghist(g: torch.Tensor) -> torch.Tensor:
+    """(d,) or (N, d) -> (..., ceil(d / 4096), NBINS) int32 per-block
+    histograms of |g| by exponent (d zero-padded)."""
+    if _on_card("maghist", g):
+        return MH.maghist(g)
+    return MH.hist_blocks(g)
+
+
 def _masked_topr(mag: torch.Tensor, tau: torch.Tensor, r: int):
     """Non-candidates (|g| < tau, and NaN) drop to -1; the survivors get a
     stable descending sort, ties to the lower index as ``lax.top_k`` does
@@ -63,6 +71,20 @@ def _masked_topr(mag: torch.Tensor, tau: torch.Tensor, r: int):
                          torch.full_like(mag, -1.0))
     vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     return vals[:, :r], idx[:, :r]
+
+
+def threshold_topk(g: torch.Tensor, r: int):
+    """Two-pass top-r of one vector (d,), or of each row of (N, d): the
+    per-block histograms (``maghist``) give tau, then the stable top-r of
+    the candidates {|g| >= tau}. Returns (vals, idx int32) shaped like
+    ``lax.top_k(|g|, r)``; vals are the masked magnitudes (non-candidates
+    read -1). The result is the stable top-r of where(isnan, -1, |g|):
+    NaN is never a candidate."""
+    rows = g.reshape(-1, g.shape[-1])
+    tau = MH.threshold_from_hist(maghist(rows), r)
+    vals, idx = _masked_topr(rows.to(torch.float32).abs(), tau, r)
+    shape = (*g.shape[:-1], r)
+    return vals.reshape(shape), idx.to(torch.int32).reshape(shape)
 
 
 def threshold_topk_batch(G: torch.Tensor, r: int) -> torch.Tensor:

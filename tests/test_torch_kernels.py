@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package's Pallas kernels.
+"""The port's four kernels against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; those
 are held against the Pallas kernels run in interpret mode, on inputs made
@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import maghist as JMH
@@ -60,6 +61,70 @@ def test_hist_rows_matches_pallas_maghist(n, d):
     np.testing.assert_array_equal(
         MH.exponent_bins(torch.from_numpy(np.abs(_SPECIAL))).numpy(),
         np.asarray(JMH.exponent_bins(jnp.asarray(np.abs(_SPECIAL)))))
+
+
+@pytest.mark.parametrize("d", [4096, 9000, 13])
+def test_hist_blocks_matches_pallas_maghist(d):
+    """Per-block histograms of each row against the single-vector Pallas
+    kernel on the zero-padded row, as the reference's wrapper pads."""
+    G = _grads(3, d, seed=d)
+    pad = (-d) % JMH.BLOCK_D
+    got = ops.maghist(torch.from_numpy(G))
+    assert got.dtype == torch.int32
+    assert got.shape == (3, (d + pad) // JMH.BLOCK_D, JMH.NBINS)
+    for i in range(3):
+        want = np.asarray(JMH.maghist(jnp.asarray(np.pad(G[i], (0, pad))),
+                                      interpret=True))
+        np.testing.assert_array_equal(got[i].numpy(), want)
+        np.testing.assert_array_equal(
+            ops.maghist(torch.from_numpy(G[i])).numpy(), want)
+        np.testing.assert_array_equal(
+            np.asarray(jops.maghist(jnp.asarray(G[i]))), want)
+
+
+@pytest.mark.parametrize("d,r", [(9000, 75), (777, 10), (300, 200),
+                                 (13, 13)])
+def test_threshold_topk_matches_reference(d, r):
+    """One vector and row-wise, vals (masked magnitudes) and indices
+    exactly, on rows with NaN, inf, zeros, denormals and magnitude ties."""
+    G = _grads(3, d, seed=d + r, ties=True)
+    G[1, : d // 2] = 0.0
+    for i in range(3):
+        j_vals, j_idx = jops.threshold_topk(jnp.asarray(G[i]), r)
+        t_vals, t_idx = ops.threshold_topk(torch.from_numpy(G[i]), r)
+        assert t_idx.dtype == torch.int32 and t_idx.shape == (r,)
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_array_equal(t_vals.numpy(), np.asarray(j_vals))
+    t_vals, t_idx = ops.threshold_topk(torch.from_numpy(G), r)
+    j_vals, j_idx = jax.vmap(lambda g: jops.threshold_topk(g, r))(
+        jnp.asarray(G))
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(t_vals.numpy(), np.asarray(j_vals))
+
+
+def test_threshold_topk_nan_laws():
+    """The result is the stable top-r of where(isnan, -1, |g|) for any
+    input: NaN is never a candidate, the finite and inf top-r always is."""
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=(300,)).astype(np.float32)
+    g[::7] = np.nan
+    g[3], g[50] = np.inf, -np.inf
+    g[100:140] = 0.0
+    g[200:220] = 1e-42
+    G = np.stack([g, np.zeros_like(g), np.full_like(g, np.nan),
+                  rng.normal(size=(300,)).astype(np.float32)])
+    for r in (5, 64, 300):
+        want = jax.lax.top_k(jnp.where(jnp.isnan(G), -1.0, jnp.abs(G)), r)
+        vals, idx = ops.threshold_topk(torch.from_numpy(G), r)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(ops.threshold_topk(
+            torch.from_numpy(g), r)[1].numpy(), np.asarray(want[1][0]))
+        # non-candidates read -1; survivors keep their magnitudes
+        np.testing.assert_array_equal(
+            vals.numpy(), np.where(vals.numpy() < 0, -1.0,
+                                   np.asarray(want[0])))
+    all_nan = ops.threshold_topk(torch.from_numpy(G[2]), 5)[0]
+    assert all_nan.tolist() == [-1] * 5
 
 
 @pytest.mark.parametrize("n,d,r,special,ties", [
@@ -149,6 +214,8 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         MH.maghist_batch(x)
     with pytest.raises(ValueError, match="CUDA"):
+        MH.maghist(x)
+    with pytest.raises(ValueError, match="CUDA"):
         SA.sparse_aggregate(torch.zeros(4, dtype=torch.int32),
                             torch.zeros(4), torch.zeros(8, dtype=torch.int32))
 
@@ -173,6 +240,21 @@ def test_maghist_batch_kernel_matches_plain(cuda, n, d):
     np.testing.assert_array_equal(
         ops.threshold_topk_batch(G, 75).cpu().numpy(),
         ops.threshold_topk_batch(G.cpu(), 75).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(39_760,), (10, 39_760), (1, 4097),
+                                   (3, 13)])
+def test_maghist_kernel_matches_plain(cuda, shape):
+    G = torch.from_numpy(_grads(1, int(np.prod(shape)), seed=shape[-1])
+                         ).reshape(shape).to(cuda)
+    before = build.LAUNCHES["maghist"]
+    got = MH.maghist(G)
+    assert build.LAUNCHES["maghist"] == before + 1
+    torch.testing.assert_close(got, MH.hist_blocks(G), rtol=0, atol=0)
+    for a, b in zip(ops.threshold_topk(G, min(75, shape[-1])),
+                    ops.threshold_topk(G.cpu(), min(75, shape[-1]))):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
 
 
 @pytest.mark.cuda
