@@ -21,7 +21,15 @@ the last line:
 6. baselines: rTop-k, the paper's Fig. 3 counterpart, for 20 rounds
    (``maghist`` and ``sparse_aggregate`` once per round, clusters stay
    singletons), then 5 rounds each of CAFe, top-k, random-k, dense and
-   rAge-k scan, each round checked against its method's kernel launches.
+   rAge-k scan, each round checked against its method's kernel launches;
+7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
+   12 decode steps from the same parameters and tokens on the card and
+   on the CPU (logits, greedy tokens and caches);
+8. serve: internlm2-1.8b at full width and depth in bfloat16, random
+   weights from seed 0, through ``launch.serve.generate`` (batch 8,
+   prompt 128, 32 generated tokens): finite logits, ``decode_attention``
+   launched once per layer per step and no other kernel; prefill s,
+   decode tokens/s, peak memory and KV bytes.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -29,7 +37,7 @@ after; the kernels' JSON record sums them over the paths.
 ``--profile`` adds ten more rounds of the rAge-k slice and of the rTop-k
 run under ``torch.profiler`` (host and device time per span of the
 round, the device's idle share, the top kernels; tables and traces in
-``build/profile/``).
+``build/profile/``), and eight more decode steps of the serve phase.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -49,6 +57,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor float32 peak
+ARCH = "internlm2-1.8b"
+# decode_attention: the reference sweep (H, G, D, S) of tests/test_kernels.py,
+# a rep that is no power of two, rep 16 at D 64 (the largest shared-memory
+# layout), a ragged long cache, and internlm2's decode shape at a real
+# cache (B, H, G, D, S)
+DA_SWEEP = [(8, 8, 64, 512), (8, 2, 64, 700), (16, 1, 128, 1024),
+            (4, 4, 256, 512), (12, 4, 64, 77), (16, 1, 64, 300),
+            (16, 8, 128, 4099)]
+DA_MAIN = (8, 16, 8, 128, 32_768)
+DA_SERVE = (8, 16, 8, 128, 160)      # the serve phase's cache at its end
+# rtol; atol is the same times min(1, max |o|) (see _da_close)
+DA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FIG3 = dict(r=75, k=10, H=4, M=20, lr=1e-4, batch_size=256)
 PAIRS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4]
 # kernel launches per round of each (method, selection) path
@@ -248,6 +268,7 @@ def phase_kernels(torch, dev):
         bound_ms=b, bound_by=by,
         library_ms=device_ms(lambda: torch.zeros(
             d, device=dev).index_add_(0, idx64, vals))))
+    out.append(decode_attention_check(torch, dev, gen))
     for k in out:
         say(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
@@ -461,6 +482,248 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
                                           f"profile_trace_{method}.json"))
 
 
+def _sdpa(torch, q, k, v, cache_len):
+    """The library's call for the same function: (B, H, 1, D) queries over
+    (B, G, S, D) views of the cache with GQA and a boolean mask."""
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device) < cache_len).view(1, 1, 1, S)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.unsqueeze(2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True).squeeze(2)
+
+
+def _da_bound(B, H, G, D, n, itemsize):
+    """Each valid K and V row read once, q read and out written once; two
+    multiply-adds per K or V element per query row, one exp per score."""
+    nbytes = itemsize * (2 * B * H * D + 2 * B * n * G * D)
+    return bound(nbytes, 4 * B * H * n * D + B * H * n)
+
+
+def _da_close(torch, got, want, tol):
+    """|got - want| <= tol * |want| + tol * min(1, max |want|). A softmax
+    average over n positions of N(0, 1) values is about n^-1/2 in size
+    (about 0.009 at 32,768 positions), so a fixed atol of tol would pass an
+    error as large as the output; scaled, it stays a few bfloat16 steps of
+    the largest output."""
+    atol = tol * min(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=atol)
+    return atol
+
+
+def decode_attention_check(torch, dev, gen):
+    """The CUDA kernel against its plain version at the sweep shapes (B 2)
+    in float32 and bfloat16 with cache_len 0, 1, S - 13 and S, bitwise
+    repeatable, and at internlm2's decode shape with a 32,768-position
+    bfloat16 cache, within ``_da_close``; device times beside the bound,
+    the plain version and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import decode_attention as DA
+
+    def inputs(B, H, G, D, S, dtype):
+        return (torch.randn((B, H, D), generator=gen, device=dev).to(dtype),
+                torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype),
+                torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype))
+
+    def check(q, k, v, clen, tol):
+        got = DA.decode_attention(q, k, v, clen)
+        want = DA.decode_attention_plain(q, k, v, clen)
+        atol = _da_close(torch, got, want, tol)
+        if not torch.equal(got, DA.decode_attention(q, k, v, clen)):
+            raise AssertionError("decode_attention is not bitwise repeatable")
+        if clen == 0 and got.any():
+            raise AssertionError("decode_attention: cache_len 0 is not zeros")
+        return float((got.float() - want.float()).abs().max()), atol
+
+    def times(q, k, v, clen, tol):
+        B, H, D = q.shape
+        G = k.shape[2]
+        b, by = _da_bound(B, H, G, D, min(clen, k.shape[1]),
+                          q.element_size())
+        # the yardstick computes the same function
+        _da_close(torch, _sdpa(torch, q, k, v, clen),
+                  DA.decode_attention_plain(q, k, v, clen), tol)
+        return dict(ms=device_ms(lambda: DA.decode_attention(q, k, v, clen)),
+                    plain_ms=device_ms(
+                        lambda: DA.decode_attention_plain(q, k, v, clen)),
+                    bound_ms=b, bound_by=by,
+                    library_ms=device_ms(lambda: _sdpa(torch, q, k, v, clen)))
+
+    for dtype, tol in DA_TOL.items():
+        for H, G, D, S in DA_SWEEP:
+            q, k, v = inputs(2, H, G, D, S, getattr(torch, dtype))
+            err = max(check(q, k, v, clen, tol)[0]
+                      for clen in (0, 1, S - 13, S))
+            t = times(q, k, v, S, tol)
+            say(f"  decode_attention B=2 H={H} G={G} D={D} S={S} {dtype}: "
+                f"max_abs_err {err:.3e} (rtol {tol}); at cache_len S kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
+                f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
+                f"({t['bound_by']})")
+    B, H, G, D, S = DA_SERVE
+    q, k, v = inputs(B, H, G, D, S, torch.bfloat16)
+    err, atol = check(q, k, v, S, DA_TOL["bfloat16"])
+    t = times(q, k, v, S, DA_TOL["bfloat16"])
+    say(f"  decode_attention serve B={B} H={H} G={G} D={D} S={S} bfloat16: "
+        f"max_abs_err {err:.3e} (atol {atol:.2e}); kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+        f"{t['bound_ms']:.6f} ({t['bound_by']})")
+    B, H, G, D, S = DA_MAIN
+    q, k, v = inputs(B, H, G, D, S, torch.bfloat16)
+    errs = [check(q, k, v, clen, DA_TOL["bfloat16"])
+            for clen in (0, 1, S - 13, S)]
+    err = max(e for e, _ in errs)
+    t = times(q, k, v, S, DA_TOL["bfloat16"])
+    say(f"  decode_attention internlm2 B={B} H={H} G={G} D={D} S={S} "
+        f"bfloat16 ({2 * k.numel() * 2 / 1e9:.2f} GB of K and V): "
+        f"max_abs_err {err:.3e} (atol at cache_len S {errs[-1][1]:.2e})")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cuh",
+                replaces="src/repro/kernels/decode_attention.py:60",
+                max_abs_err=err, **t)
+
+
+def phase_lm_parity(torch, dev):
+    """internlm2-1.8b at full width with 2 layers in float32: 8 prompt and
+    4 generated decode steps on the card and on the CPU from the same
+    parameters, both fed the CPU's tokens. Logits within rtol=atol=1e-4
+    and caches within 1e-5 (cuBLAS and the CPU's BLAS sum the
+    2048- and 8192-long float32 products in other orders; TF32 off), the
+    greedy tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _tree_to(cpu, dev)
+    B, P, GEN = 2, 8, 4
+    toks = torch.randint(0, cfg.vocab_size, (B, P),
+                         generator=torch.Generator().manual_seed(1))
+    caches = [T.init_cache(cfg, B, P + GEN, device=d) for d in ("cpu", dev)]
+    err = 0.0
+    for t in range(P + GEN):
+        tok = toks[:, t] if t < P else cur
+        lc, caches[0] = T.decode_step(cpu, cfg, {"token": tok}, caches[0], t)
+        lg, caches[1] = T.decode_step(card, cfg, {"token": tok.to(dev)},
+                                      caches[1], t)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        cur = lc.argmax(-1)
+        if not torch.equal(lg.argmax(-1).cpu(), cur):
+            raise AssertionError(f"LM parity: greedy tokens differ at {t}")
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    for name in ("k", "v"):
+        torch.testing.assert_close(caches[1][name].cpu(), caches[0][name],
+                                   rtol=1e-5, atol=1e-5)
+    say(f"LM parity: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+        f"G={cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"{cfg.n_layers} layers, float32: {P + GEN} decode steps card == "
+        f"CPU (max |logit diff| {err:.3e}, greedy tokens equal, caches "
+        f"within 1e-5) in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve(torch, dev, profile: bool):
+    """internlm2-1.8b at full width and depth, bfloat16, random weights
+    from seed 0 on the card, served through ``launch.serve.generate``.
+    Returns the launch counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(ARCH)
+    B, P, GEN = 8, 128, 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(w.numel() for w in _leaves(params))
+    w_bytes = sum(w.numel() * w.element_size() for w in _leaves(params))
+    build.reset_launches()
+    out = generate(params, cfg, prompts, GEN)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (cfg.n_layers * (P + GEN) if k == "decode_attention" else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"serve: kernel launches {launches}, "
+                             f"expected {want}")
+    if not out.finite or out.logits.shape != (B, cfg.padded_vocab):
+        raise AssertionError("serve: non-finite logits or a wrong shape")
+    kv_bytes = (2 * cfg.n_layers * B * (P + GEN) * cfg.n_kv_heads
+                * cfg.head_dim_ * 2)
+    say(f"serve: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+        f"{n_params / 1e9:.3f} B params ({w_bytes / 1e9:.3f} GB bfloat16), "
+        f"batch {B}, prompt {P}, {GEN} generated tokens on "
+        f"{torch.cuda.get_device_name(0)}")
+    say(f"serve: prefill (by {P} decode steps) {out.prefill_s:.3f} s")
+    say(f"serve: decode {B * GEN / out.decode_s:.1f} tokens/s over the "
+        f"batch ({GEN / out.decode_s:.1f} tok/s per sequence, "
+        f"{out.decode_s / GEN * 1e3:.2f} ms per step)")
+    say(f"serve: peak device memory while serving {peak / 2**30:.3f} GiB; "
+        f"KV cache {kv_bytes / 2**20:.1f} MiB")
+    say(f"serve: kernel launches {launches} "
+        f"({cfg.n_layers} decode_attention per step, {P + GEN} steps)")
+    say("serve: generated token ids (first row): "
+        f"{out.tokens[0].tolist()}")
+    if profile:
+        profile_decode(torch, dev, params, cfg, prompts)
+    return launches
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
+    """``--profile``: ``steps`` decode steps of the serve configuration
+    after a 128-token prompt, under ``torch.profiler``: host ms and device
+    busy ms per step, the device's idle share, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+
+    B, P = prompts.shape
+    cache = T.init_cache(cfg, B, P + steps, device=dev)
+    for t in range(P):
+        _, cache = T.decode_step(params, cfg, {"token": prompts[:, t]},
+                                 cache, t)
+    tok = prompts[:, -1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(P, P + steps):
+            _, cache = T.decode_step(params, cfg, {"token": tok}, cache, t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / steps / 1e3
+    say(f"profile serve: {steps} decode steps, {wall:.3f} ms per step with "
+        f"the profiler on; device busy {busy:.3f} ms per step "
+        f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        say(f"  device {dev_us(e) / steps:9.2f} us/step x"
+            f"{e.count / steps:6.1f}  {e.key[:80]}")
+    host = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        say(f"  host {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
+            f"x{e.count / steps:7.1f}  {e.key[:80]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -506,9 +769,12 @@ def main() -> int:
     base, rtop, rtop_median_s = phase_baselines(torch, shards, test, acc)
     if profile:
         phase_profile(torch, rtop, rtop_median_s)
+    del eng, rtop
+    phase_lm_parity(torch, dev)
+    serve = phase_serve(torch, dev, profile)
 
     for k in kernels:
-        k["launches"] = launches[k["name"]] + base[k["name"]]
+        k["launches"] = sum(run[k["name"]] for run in (launches, base, serve))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

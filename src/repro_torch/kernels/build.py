@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -29,9 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (every pointer and the stream are void*)
 SIGNATURES = {
+    "decode_attention": [P, P, P, P, I, I, I, I, I, I, I, F, P],
     "maghist": [P, P, I, I, P],
     "maghist_batch": [P, P, I, I, P],
     "segmented_age_topk": [P, P, P, P, I, I, I, I, I, P],
@@ -73,6 +75,7 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
     objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -80,7 +83,8 @@ def build() -> Path:
     logs = []
     for s, p in zip(sources, procs):
         out, _ = p.communicate()
-        logs.append(f"== {s.name}\n{out}")
+        done = time.perf_counter() - t0
+        logs.append(f"== {s.name} (finished by {done:.1f} s)\n{out}")
         if p.returncode != 0:
             build_log = "\n".join(logs)
             raise RuntimeError(f"nvcc failed on {s.name}:\n{out}")

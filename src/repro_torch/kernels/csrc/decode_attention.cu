@@ -1,0 +1,32 @@
+// decode_attention: the C entry and the head dim 128 instantiations (the
+// LM's). The kernel is in decode_attention.cuh.
+#include "decode_attention.cuh"
+
+namespace repro_da {
+
+cudaError_t launch_d128(bool bf16, const Args& a) {
+  return bf16 ? by_rep<__nv_bfloat16, 128>(a) : by_rep<float, 128>(a);
+}
+
+}  // namespace repro_da
+
+// q: (B, H, D), k/v: (B, S, G, D), out: (B, H, D), all float32 (bf16 = 0)
+// or bfloat16 (bf16 = 1), contiguous and 16-byte aligned; n = number of
+// valid cache positions, 0 <= n <= S; D in {64, 128, 256}, H / G <= 16.
+extern "C" int decode_attention(const void* q, const void* k, const void* v,
+                                void* out, int B, int H, int G, int S, int D,
+                                int n, int bf16, float scale, void* stream) {
+  using namespace repro_da;
+  if (B > 0 && G > 0) {
+    const Args a{q, k, v, out, B, H, G, S, n, scale,
+                 static_cast<cudaStream_t>(stream)};
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (D) {
+      case 64: e = launch_d64(bf16 != 0, a); break;
+      case 128: e = launch_d128(bf16 != 0, a); break;
+      case 256: e = launch_d256(bf16 != 0, a); break;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

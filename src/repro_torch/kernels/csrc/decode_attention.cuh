@@ -1,0 +1,401 @@
+// decode_attention: one new query token per head attending to the first
+// n positions of a (B, S, G, D) KV cache with grouped-query heads
+// (rep = H / G query heads share one KV head), scale D^-1/2, online
+// softmax in float32. The decode-step attention of every layer of the LM.
+//
+// Replaces the Pallas kernel repro/kernels/decode_attention.py::
+// decode_attention (_kernel), whose sequential TPU grid carries the
+// running max, sum and accumulator of the online softmax in VMEM scratch
+// from one 512-position block to the next, one kv group at a time.
+//
+// Bound on the H100: bytes. The call reads each valid K and V row once
+// (at B 8, G 8, D 128, 32,768 positions in bfloat16 that is 1.07 GB,
+// 0.32 ms at 3.35 TB/s) and does 4 float operations per K or V element
+// for each of the rep query rows, far below the card's compute.
+//
+// Design: one block of 256 threads per (batch row, kv group) holds the
+// group's rep query rows, pre-scaled, and walks the cache in tiles of
+// 48 KB of K and 48 KB of V (192 positions at D 128 in bfloat16), staged
+// through shared memory by cp.async two tiles deep: the next tile's 96 KB
+// load while one tile is used (larger tiles beat more stages here: fewer
+// barriers per position). Per tile, three phases between barriers:
+// (1) scores: eight lanes take one position (each lane 16-byte chunks
+//     of the row, neighbouring lanes on neighbouring chunks), a warp four
+//     positions at a time, the query rows in registers; a three-step
+//     reduction inside the eight lanes; each warp keeps each row's max
+//     over its positions;
+// (2) softmax: the row max over the warps' maxes folds into the running
+//     max (the TPU kernel's guards: m_safe = 0 while the max is -inf,
+//     alpha = 0 while the previous max is -inf); every warp exponentiates
+//     a share of the scores and sums its share;
+// (3) p @ v: each thread owns two columns of every row over a fixed
+//     group of the tile's positions and adds p * v in position order.
+// The running sum adds the warps' shares in warp order, and at the end the
+// position groups' partial outputs are added in group order: no atomics,
+// so the result is the same run to run. Positions at or past n are never
+// read, which is the TPU kernel's mask (p = 0 there). The output is
+// acc / max(l, 1e-30), so n = 0 gives zeros. At a long cache B * G blocks
+// underfill the 132 SMs (64 blocks at internlm2's B 8, G 8); a split over
+// the cache with a fixed-order combine is the redesign for that.
+//
+// The kernel template and its launcher live here; each head dim's
+// instantiations are compiled in a source of their own
+// (decode_attention_d64.cu, decode_attention.cu for D 128,
+// decode_attention_d256.cu), so the parallel nvcc runs overlap them.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace repro_da {
+
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileBytes = 49152;   // one tile of K (and one of V)
+constexpr int kStages = 2;          // tiles in the cp.async ring
+constexpr int kGroup = 8;           // lanes that score one position
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// one 16-byte chunk of a row as floats
+__device__ __forceinline__ void chunk_f32(const float* p, float* out) {
+  const float4 c = *reinterpret_cast<const float4*>(p);
+  out[0] = c.x; out[1] = c.y; out[2] = c.z; out[3] = c.w;
+}
+__device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p, float* out) {
+  const uint4 c = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// REP: the power of two >= rep that sizes the register arrays.
+template <typename T, int D, int REP>
+struct Cfg {
+  static constexpr int kTile = kTileBytes / (D * int(sizeof(T)));  // positions
+  static constexpr int kEPC = 16 / int(sizeof(T));        // elements a chunk
+  static constexpr int kRowChunks = D / kEPC;             // chunks a row
+  static constexpr int kCPL = kRowChunks / kGroup;        // chunks a lane
+  static constexpr int kGE = kCPL * kEPC;                 // elements a lane
+  static constexpr int kUnroll = 32 / kGE > 0 ? (32 / kGE < 4 ? 32 / kGE : 4) : 1;
+  static constexpr int kRowBlock = REP < (32 / kGE > 0 ? 32 / kGE : 1)
+                                       ? REP : (32 / kGE > 0 ? 32 / kGE : 1);
+  static constexpr int kStep = (32 / kGroup) * kUnroll;  // positions a warp step
+  static constexpr int kWPR = REP < kWarps ? kWarps / REP : 1;  // warps a row
+  static constexpr int kPairs = D / 2;                    // columns of p @ v
+  static constexpr int kPG = kThreads / kPairs;           // position groups
+  static constexpr int kChunk = kTile / kPG;              // a group's positions
+  static constexpr size_t kSmem =
+      2 * kStages * kTileBytes +
+      4 * (REP * kTile + REP * D + kWarps * REP + REP * kWPR + 4 * REP);
+};
+
+template <typename T, int D, int REP>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out, int H,
+                        int G, int S, int n, float scale) {
+  using C = Cfg<T, D, REP>;
+  constexpr int TS = C::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kv_s = reinterpret_cast<T*>(smem);           // [kStages][K|V][TS][D]
+  float* p_s = reinterpret_cast<float*>(smem + 2 * kStages * kTileBytes);
+  float* q_s = p_s + REP * TS;                    // [REP][D], scaled
+  float* wmax_s = q_s + REP * D;                  // [kWarps][REP] tile maxes
+  float* wsum_s = wmax_s + kWarps * REP;          // [REP][kWPR] tile sums
+  float* m_s = wsum_s + REP * C::kWPR;            // [2][REP] running max
+  float* l_s = m_s + 2 * REP;                     // [REP] running sum
+  float* a_s = l_s + REP;                         // [REP] this tile's rescale
+
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int rep = H / G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / kGroup, gl = lane % kGroup;
+  const size_t pos_stride = static_cast<size_t>(G) * D;
+  const T* kb = k + (static_cast<size_t>(b) * S * G + g) * D;
+  const T* vb = v + (static_cast<size_t>(b) * S * G + g) * D;
+  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep) * D;
+
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_f32(qb[i]) * scale;
+  for (int i = tid; i < REP * TS; i += kThreads) p_s[i] = 0.f;  // rows >= rep stay 0
+  if (tid < REP) {
+    m_s[tid] = -CUDART_INF_F;
+    l_s[tid] = 0.f;
+    a_s[tid] = 0.f;
+  }
+
+  const int ntiles = (n + TS - 1) / TS;
+  auto load = [&](int t) {
+    if (t < ntiles) {
+      const int p0 = t * TS, cnt = min(TS, n - p0);
+      char* dk = reinterpret_cast<char*>(kv_s + static_cast<size_t>(t % kStages) * 2 * TS * D);
+      char* dv = dk + TS * D * sizeof(T);
+      for (int i = tid; i < cnt * C::kRowChunks; i += kThreads) {
+        const int r = i / C::kRowChunks, c = i % C::kRowChunks;
+        const size_t src = (static_cast<size_t>(p0 + r) * pos_stride) * sizeof(T) + c * 16;
+        const size_t dst = static_cast<size_t>(r) * D * sizeof(T) + c * 16;
+        cp_async16(dk + dst, reinterpret_cast<const char*>(kb) + src);
+        cp_async16(dv + dst, reinterpret_cast<const char*>(vb) + src);
+      }
+    }
+    cp_async_commit();   // an empty group keeps the wait count uniform
+  };
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  __syncthreads();
+
+  const int c2 = (tid % C::kPairs) * 2, pg = tid / C::kPairs;
+  float acc[REP][2];
+#pragma unroll
+  for (int j = 0; j < REP; ++j) acc[j][0] = acc[j][1] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    load(t + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const T* ks = kv_s + static_cast<size_t>(t % kStages) * 2 * TS * D;
+    const T* vs = ks + TS * D;
+    const int cnt = min(TS, n - t * TS);
+    const float* m_prev_s = m_s + (t & 1) * REP;
+    float* m_next_s = m_s + ((t + 1) & 1) * REP;
+
+    // (1) scores. Lane gl of a group holds chunks gl, gl + 8, ... of a row.
+    for (int r0 = 0; r0 < rep; r0 += C::kRowBlock) {
+      float qr[C::kRowBlock][C::kGE];
+#pragma unroll
+      for (int j = 0; j < C::kRowBlock; ++j)
+#pragma unroll
+        for (int e = 0; e < C::kGE; ++e) {
+          const int col = (gl + kGroup * (e / C::kEPC)) * C::kEPC + e % C::kEPC;
+          qr[j][e] = r0 + j < rep ? q_s[(r0 + j) * D + col] : 0.f;
+        }
+      float mrun[C::kRowBlock];
+#pragma unroll
+      for (int j = 0; j < C::kRowBlock; ++j) mrun[j] = -CUDART_INF_F;
+      for (int s0 = warp * C::kStep; s0 < cnt; s0 += kWarps * C::kStep) {
+        float kf[C::kUnroll][C::kGE];
+#pragma unroll
+        for (int u = 0; u < C::kUnroll; ++u) {
+          const int s = s0 + u * (32 / kGroup) + grp;
+#pragma unroll
+          for (int cc = 0; cc < C::kCPL; ++cc) {
+            if (s < cnt)
+              chunk_f32(ks + s * D + (gl + kGroup * cc) * C::kEPC, &kf[u][cc * C::kEPC]);
+            else
+#pragma unroll
+              for (int i = 0; i < C::kEPC; ++i) kf[u][cc * C::kEPC + i] = 0.f;
+          }
+        }
+        float part[C::kRowBlock][C::kUnroll];
+#pragma unroll
+        for (int j = 0; j < C::kRowBlock; ++j)
+#pragma unroll
+          for (int u = 0; u < C::kUnroll; ++u) {
+            part[j][u] = 0.f;
+#pragma unroll
+            for (int e = 0; e < C::kGE; ++e)
+              part[j][u] = fmaf(qr[j][e], kf[u][e], part[j][u]);
+          }
+#pragma unroll
+        for (int o = kGroup / 2; o > 0; o >>= 1)
+#pragma unroll
+          for (int j = 0; j < C::kRowBlock; ++j)
+#pragma unroll
+            for (int u = 0; u < C::kUnroll; ++u)
+              part[j][u] += __shfl_xor_sync(0xffffffffu, part[j][u], o);
+#pragma unroll
+        for (int u = 0; u < C::kUnroll; ++u) {
+          const int s = s0 + u * (32 / kGroup) + grp;
+          if (s < cnt) {
+#pragma unroll
+            for (int j = 0; j < C::kRowBlock; ++j) {
+              mrun[j] = fmaxf(mrun[j], part[j][u]);
+              if (gl == j % kGroup && r0 + j < rep) p_s[(r0 + j) * TS + s] = part[j][u];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C::kRowBlock; ++j) {
+        float m = mrun[j];
+#pragma unroll
+        for (int o = 16; o >= kGroup; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if (lane == 0 && r0 + j < rep) wmax_s[warp * REP + r0 + j] = m;
+      }
+    }
+    __syncthreads();
+
+    // (2) softmax: kWPR warps per row, each a share of its positions
+    for (int r = warp / C::kWPR; r < rep; r += kWarps / C::kWPR) {
+      const int sub = warp % C::kWPR;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax_s[w * REP + r]);
+      const float m_prev = m_prev_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float m_safe = isinf(m_new) ? 0.f : m_new;
+      float* pr = p_s + r * TS;
+      float sum = 0.f;
+      for (int s = sub * 32 + lane; s < cnt; s += C::kWPR * 32) {
+        const float p = expf(pr[s] - m_safe);
+        pr[s] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        wsum_s[r * C::kWPR + sub] = sum;
+        if (sub == 0) {
+          m_next_s[r] = m_new;
+          a_s[r] = isinf(m_prev) ? 0.f : expf(m_prev - m_safe);
+        }
+      }
+    }
+    __syncthreads();
+
+    // (3) p @ v: thread (pg, c2) owns columns c2, c2 + 1 of every row over
+    // its group's kChunk positions of the tile
+    float alpha[REP];
+#pragma unroll
+    for (int j = 0; j < REP; ++j) {
+      alpha[j] = a_s[j];
+      acc[j][0] *= alpha[j];
+      acc[j][1] *= alpha[j];
+    }
+    if (tid < rep) {
+      float sum = 0.f;
+      for (int h = 0; h < C::kWPR; ++h) sum += wsum_s[tid * C::kWPR + h];
+      l_s[tid] = l_s[tid] * a_s[tid] + sum;
+    }
+    const int s_beg = pg * C::kChunk;
+    const int s_end = min(cnt, s_beg + C::kChunk);
+    int s = s_beg;
+    for (; s + 4 <= s_end; s += 4) {
+      float2 vf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) vf[i] = load2(vs + (s + i) * D + c2);
+#pragma unroll
+      for (int j = 0; j < REP; ++j) {
+        const float4 p = *reinterpret_cast<const float4*>(p_s + j * TS + s);
+        const float pp[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[j][0] = fmaf(pp[i], vf[i].x, acc[j][0]);
+          acc[j][1] = fmaf(pp[i], vf[i].y, acc[j][1]);
+        }
+      }
+    }
+    for (; s < s_end; ++s) {
+      const float2 vf = load2(vs + s * D + c2);
+#pragma unroll
+      for (int j = 0; j < REP; ++j) {
+        const float p = p_s[j * TS + s];
+        acc[j][0] = fmaf(p, vf.x, acc[j][0]);
+        acc[j][1] = fmaf(p, vf.y, acc[j][1]);
+      }
+    }
+    __syncthreads();   // the next tile's load reuses this stage and p_s
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the position groups' partial sums, added in group order (fixed)
+  float* red = reinterpret_cast<float*>(smem);    // [kPG][REP][D]
+#pragma unroll
+  for (int j = 0; j < REP; ++j) {
+    red[(pg * REP + j) * D + c2] = acc[j][0];
+    red[(pg * REP + j) * D + c2 + 1] = acc[j][1];
+  }
+  __syncthreads();
+  for (int i = tid; i < rep * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    float sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < C::kPG; ++h) sum += red[(h * REP + r) * D + c];
+    out[(static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep + r) * D + c] =
+        from_f32<T>(sum / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int B, H, G, S, n;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int REP>
+cudaError_t launch(const Args& a) {
+  auto kern = decode_attention_kernel<T, D, REP>;
+  constexpr size_t smem = Cfg<T, D, REP>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(a.G, a.B), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.H, a.G, a.S, a.n,
+      a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t by_rep(const Args& a) {
+  const int rep = a.H / a.G;
+  if (rep <= 1) return launch<T, D, 1>(a);
+  if (rep <= 2) return launch<T, D, 2>(a);
+  if (rep <= 4) return launch<T, D, 4>(a);
+  if (rep <= 8) return launch<T, D, 8>(a);
+  if (rep <= 16) return launch<T, D, 16>(a);
+  return cudaErrorInvalidValue;
+}
+
+// one head dim's launcher for both dtypes, each defined in its own source
+cudaError_t launch_d64(bool bf16, const Args& a);
+cudaError_t launch_d128(bool bf16, const Args& a);
+cudaError_t launch_d256(bool bf16, const Args& a);
+
+}  // namespace repro_da

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import maghist as MH
 from repro_torch.kernels import segmented_topk as ST
 from repro_torch.kernels import sparse_aggregate as SA
@@ -95,3 +96,13 @@ def threshold_topk_batch(G: torch.Tensor, r: int) -> torch.Tensor:
     mag = G.to(torch.float32).abs()
     tau = MH.threshold_from_hist_batch(maghist_batch(G), r)
     return _masked_topr(mag, tau, r)[1].to(torch.int32)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len) -> torch.Tensor:
+    """q (B, H, D) one query token per head, k/v (B, S, G, D) the cache,
+    cache_len a host int -> (B, H, D) in q's dtype: attention over the
+    first min(cache_len, S) positions (zeros when there are none)."""
+    if _on_card("decode_attention", q):
+        return DA.decode_attention(q, k, v, cache_len)
+    return DA.decode_attention_plain(q, k, v, cache_len)

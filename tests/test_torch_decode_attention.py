@@ -1,0 +1,146 @@
+"""The port's ``decode_attention`` against the JAX package's.
+
+On the CPU ``repro_torch.kernels.ops.decode_attention`` runs the kernel's
+plain version; it is held against the Pallas kernel (interpret mode,
+through ``repro.kernels.ops.decode_attention``) at the shapes of
+``tests/test_kernels.py``'s sweep, with cache_len at 0, 1, S - 13 and S,
+on inputs made from a seed with numpy. Tolerances: rtol float32 2e-5
+(both sum float32 products, in another order); bfloat16 2e-2, the
+sweep's own (both compute in float32 from the same bfloat16 inputs, so
+outputs differ by at most one bfloat16 step, 2^-8 of |o|); atol the
+same times min(1, max |o|), since a softmax average over n positions of
+N(0, 1) values is only about n^-1/2 in size. Against the JAX model
+layer, which rounds q * scale and the softmax weights to the cache dtype
+before its products, float32 agrees to 1e-5 and bfloat16 to 1e-2 (about
+1e-3 seen).
+
+The tests marked ``cuda`` hold the CUDA kernel against its plain version
+on the card and skip where there is none. They need no JAX, so the file
+also runs on a machine with a card and no JAX (the comparisons with the
+JAX package then skip).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.models import layers as JL
+except ImportError:
+    jnp = None
+
+from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import ops
+
+SWEEP = [(8, 8, 64, 512), (8, 2, 64, 700), (16, 1, 128, 1024),
+         (4, 4, 256, 512)]
+DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture
+def jax_ref():
+    if jnp is None:
+        pytest.skip("needs JAX, the reference")
+
+
+def _inputs(B, H, G, D, S, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, G, D)).astype(np.float32),
+            rng.standard_normal((B, S, G, D)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    return ([jnp.asarray(a).astype(jnp.dtype(dtype)) for a in arrays],
+            [torch.from_numpy(a).to(DTYPES[dtype][0]) for a in arrays])
+
+
+def _atol(want, tol):
+    """tol scaled to the largest output, never above tol (see above)."""
+    return tol * min(1.0, float(np.abs(want).max()))
+
+
+def _f32(x):
+    if torch.is_tensor(x):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("H,G,D,S", SWEEP)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_matches_pallas_kernel(jax_ref, H, G, D, S, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, H, G, D, S, H * S), dtype)
+    tol = DTYPES[dtype][1]
+    for clen in (0, 1, S - 13, S):
+        want = jops.decode_attention(jq, jk, jv, clen)
+        got = ops.decode_attention(tq, tk, tv, clen)
+        assert got.dtype == tq.dtype and got.shape == (2, H, D)
+        want = _f32(want)
+        np.testing.assert_allclose(_f32(got), want, atol=_atol(want, tol),
+                                   rtol=tol, err_msg=f"cache_len={clen}")
+        if clen == 0:
+            assert not got.any()                # zeros, not NaN
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("clen", [400, 512])
+def test_matches_model_layer(jax_ref, dtype, tol, clen):
+    """Against ``repro.models.layers.decode_attention`` (B 2, H 8, G 4,
+    D 64, S 512), as tests/test_kernels.py holds the Pallas kernel."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, 8, 4, 64, 512, 7), dtype)
+    want = JL.decode_attention(jq, jk, jv, clen)
+    got = ops.decode_attention(tq, tk, tv, clen)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def test_ignores_what_lies_past_cache_len():
+    """Positions >= cache_len are never read: NaN there changes nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 64, 40, 3))
+    torch.testing.assert_close(ops.decode_attention(q, k, v, 10 ** 6),
+                               ops.decode_attention(q, k, v, 40),
+                               rtol=0, atol=0)
+    want = ops.decode_attention(q, k, v, 25)
+    k[:, 25:], v[:, 25:] = float("nan"), float("inf")
+    torch.testing.assert_close(ops.decode_attention(q, k, v, 25), want,
+                               rtol=0, atol=0)
+
+
+def test_kernel_launcher_refuses_what_it_cannot_take():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 64, 8, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        DA.decode_attention(q, k, v, 4)
+    for bad in ((q[:, :3], k, v), (q[..., :48], k[..., :48], v[..., :48]),
+                (q.double(), k.double(), v.double()), (q, k, v[:, :4])):
+        with pytest.raises(ValueError):
+            DA.decode_attention(*bad, 4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,G,D,S", SWEEP + [(16, 8, 128, 4099),
+                                             (12, 4, 64, 77),
+                                             (16, 1, 64, 300)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])
+               for a in _inputs(3, H, G, D, S, S))
+    tol = DTYPES[dtype][1]
+    for clen in (0, 1, S - 13, S):
+        before = build.LAUNCHES["decode_attention"]
+        got = DA.decode_attention(q, k, v, clen)
+        assert build.LAUNCHES["decode_attention"] == before + 1
+        want = DA.decode_attention_plain(q, k, v, clen)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=tol,
+            atol=_atol(want.float().cpu().numpy(), tol))
+        assert torch.equal(got, DA.decode_attention(q, k, v, clen))

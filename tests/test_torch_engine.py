@@ -233,12 +233,18 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(sum(m.startswith('repro_torch') for m in sys.modules))\n")
+        "print(' '.join(m for m in sys.modules"
+        " if m.startswith('repro_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={**os.environ, "PYTHONPATH":
                                          os.path.dirname(root)})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 20
+    mods = set(out.stdout.split())
+    assert len(mods) >= 36
+    assert {"repro_torch.configs.internlm2_1_8b", "repro_torch.launch.serve",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.registry",
+            "repro_torch.kernels.decode_attention"} <= mods
 
 
 def test_no_silent_cpu(fig3_data, monkeypatch):

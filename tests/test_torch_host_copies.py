@@ -1,7 +1,8 @@
 """The port's numpy copies of host modules equal the JAX package's
 originals on the same random inputs: age merge/reset, eq.-(3) similarity
 and DBSCAN, the byte ledger, the synthetic MNIST data and its paper split,
-and RAgeKConfig validation. Integers and arrays compare exactly (the
+RAgeKConfig validation, and the LM's ArchConfig (fields, properties,
+param_count) and InputShape. Integers and arrays compare exactly (the
 copies run the same numpy operations)."""
 import dataclasses
 
@@ -10,6 +11,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from repro import configs as JConfigs
+from repro.configs import base as JB
 from repro.configs.base import RAgeKConfig as JCfg
 from repro.core import age as JA
 from repro.core import clustering as JCl
@@ -17,6 +20,8 @@ from repro.core import compression as JCo
 from repro.data import federated as JF
 from repro.data import synthetic as JS
 
+from repro_torch import configs as TConfigs
+from repro_torch.configs import base as TB
 from repro_torch.configs.base import RAgeKConfig as TCfg
 from repro_torch.core import age as TA
 from repro_torch.core import clustering as TCl
@@ -125,3 +130,52 @@ def test_config_validation_matches(kw):
         except ValueError:
             outcomes.append(ValueError)
     assert outcomes[0] == outcomes[1]
+
+
+_ARCH_PROPS = ("head_dim_", "padded_vocab", "attention_free", "d_inner",
+               "ssm_nheads", "is_moe", "moe_hidden")
+
+
+def _arch_summary(cfg):
+    return (dataclasses.asdict(cfg),
+            {p: getattr(cfg, p) for p in _ARCH_PROPS},
+            cfg.param_count(), cfg.param_count(active_only=True))
+
+
+def test_arch_config_fields_match():
+    def spec(cls):
+        return [(f.name, f.type, f.default,
+                 f.default_factory() if f.default_factory
+                 is not dataclasses.MISSING else None)
+                for f in dataclasses.fields(cls)]
+    assert spec(TB.ArchConfig) == spec(JB.ArchConfig)
+    assert spec(TB.InputShape) == spec(JB.InputShape)
+    assert TB.INPUT_SHAPES.keys() == JB.INPUT_SHAPES.keys()
+    for name, shape in JB.INPUT_SHAPES.items():
+        assert dataclasses.asdict(TB.INPUT_SHAPES[name]) == \
+            dataclasses.asdict(shape)
+    for x in (1, 511, 512, 513, 92_544, 256_000):
+        assert TB.pad_to_multiple(x, 512) == JB.pad_to_multiple(x, 512)
+
+
+@pytest.mark.parametrize("arch", JConfigs.list_archs())
+def test_arch_config_properties_match(arch):
+    """Every reference architecture rebuilt as the port's ArchConfig gives
+    the same properties and parameter counts (dense, MoE, MLA, SSM,
+    hybrid, audio, VLM, the paper nets), full size and smoke."""
+    for jcfg in (JConfigs.get_config(arch), JConfigs.get_smoke_config(arch)):
+        tcfg = TB.ArchConfig(**dataclasses.asdict(jcfg))
+        assert _arch_summary(tcfg) == _arch_summary(jcfg)
+
+
+@pytest.mark.parametrize("which", ["get_config", "get_smoke_config"])
+def test_internlm2_config_matches(which):
+    jcfg = getattr(JConfigs, which)("internlm2-1.8b")
+    tcfg = getattr(TConfigs, which)("internlm2-1.8b")
+    assert _arch_summary(tcfg) == _arch_summary(jcfg)
+    kw = dict(n_layers=3, dtype="float32", sliding_window=8,
+              grad_accum={"train_4k": 2})
+    assert _arch_summary(tcfg.replace(**kw)) == _arch_summary(
+        jcfg.replace(**kw))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tcfg.n_layers = 1
