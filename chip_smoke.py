@@ -29,7 +29,11 @@ the last line:
    weights from seed 0, through ``launch.serve.generate`` (batch 8,
    prompt 128, 32 generated tokens): finite logits, ``decode_attention``
    launched once per layer per step and no other kernel; prefill s,
-   decode tokens/s, peak memory and KV bytes.
+   decode tokens/s, peak memory and KV bytes;
+9. long decode: the same model with a 32,768-position cache of batch 8
+   filled with seeded random values, 16 decode steps at its end: host ms
+   per step, then under ``torch.profiler`` the device's busy ms and
+   ``decode_attention``'s device ms per step.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -69,6 +73,12 @@ DA_MAIN = (8, 16, 8, 128, 32_768)
 DA_SERVE = (8, 16, 8, 128, 160)      # the serve phase's cache at its end
 # rtol; atol is the same times min(1, max |o|) (see _da_close)
 DA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# sparse_aggregate at (clients N, uploads k each, d): fig3, the paper's
+# CIFAR setting (benchmarks/fig5_cifar.py: N 10, k 100, Network-2) and
+# 10 x 25,000 uploads into the same d
+SA_SHAPES = [(10, 10, 39_760), (10, 100, 2_515_338), (10, 25_000, 2_515_338)]
+# the long-cache decode phase: batch, cache positions, decode steps
+LONG = (8, 32_768, 16)
 FIG3 = dict(r=75, k=10, H=4, M=20, lr=1e-4, batch_size=256)
 PAIRS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4]
 # kernel launches per round of each (method, selection) path
@@ -110,6 +120,35 @@ def device_ms(fn, *, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _dev_us(e, total=False):
+    """A profiler row's device microseconds (self, or with its children)."""
+    name = "device_time_total" if total else "self_device_time_total"
+    return getattr(e, name, getattr(e, name.replace("device", "cuda"), 0))
+
+
+def kernel_breakdown(torch, fn, reps: int = 10) -> str:
+    """Device us per launch of each kernel that ``fn`` launches, and its
+    launches per call, from ``torch.profiler`` over ``reps`` calls after
+    one warm-up (the profiler may miss a launch: x0.9 means 9 of 10)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    def name(key):   # the kernel's name without namespace or arguments
+        key = key.replace("(anonymous namespace)::", "")
+        return key.split("(")[0].split("<")[0].split(" ")[-1] or key[:40]
+    return ", ".join(f"{name(e.key)} {_dev_us(e) / max(1, e.count):.2f} us "
+                     f"x{e.count / reps:g}"
+                     for e in sorted(rows, key=_dev_us, reverse=True))
+
+
 def bound(nbytes: int, nops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / FP32_OPS_PER_S * 1e3
@@ -131,7 +170,6 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels import maghist as MH
     from repro_torch.kernels import ops
     from repro_torch.kernels import segmented_topk as ST
-    from repro_torch.kernels import sparse_aggregate as SA
 
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
@@ -235,39 +273,7 @@ def phase_kernels(torch, dev):
         ms=times[(5, 2)][0], plain_ms=times[(5, 2)][1], bound_ms=b,
         bound_by=by, library_ms=None))
 
-    # sparse_aggregate: NK = 100 uploads into d = 39,760, plus duplicates
-    # and the sentinels d and -2; floats within rtol=1e-5, atol=1e-6
-    err = 0.0
-    for d, nk in ((39_760, 100), (1000, 3000), (513, 7)):
-        idx = torch.randint(-3, d + 3, (nk,), generator=gen, device=dev)
-        q = nk // 4
-        idx[:q] = idx[q:2 * q].clone()                  # duplicates
-        idx[-2:] = torch.tensor([d, -2], device=dev)     # sentinels
-        vals = torch.randn(nk, generator=gen, device=dev)
-        age = torch.randint(0, 30, (d,), generator=gen, device=dev).int()
-        dense, new_age = SA.sparse_aggregate(idx, vals, age)
-        dense_p, age_p = SA.sparse_aggregate_plain(idx, vals, age)
-        torch.testing.assert_close(dense, dense_p, rtol=1e-5, atol=1e-6)
-        if not torch.equal(new_age, age_p):
-            raise AssertionError(f"sparse_aggregate ages differ at {d}")
-        if not torch.equal(dense, SA.sparse_aggregate(idx, vals, age)[0]):
-            raise AssertionError("sparse_aggregate is not bitwise repeatable")
-        err = max(err, float((dense - dense_p).abs().max()))
-    d, nk = 39_760, 100
-    idx = torch.randperm(d, generator=gen, device=dev)[:nk].int()
-    vals = torch.randn(nk, generator=gen, device=dev)
-    age = torch.zeros(d, dtype=torch.int32, device=dev)
-    idx64 = idx.long()
-    b, by = bound(8 * nk + 12 * d, nk)
-    out.append(dict(
-        name="sparse_aggregate", route="cuda",
-        source="src/repro_torch/kernels/csrc/sparse_aggregate.cu",
-        replaces="src/repro/kernels/sparse_aggregate.py:60", max_abs_err=err,
-        ms=device_ms(lambda: SA.sparse_aggregate(idx, vals, age)),
-        plain_ms=device_ms(lambda: SA.sparse_aggregate_plain(idx, vals, age)),
-        bound_ms=b, bound_by=by,
-        library_ms=device_ms(lambda: torch.zeros(
-            d, device=dev).index_add_(0, idx64, vals))))
+    out.append(sparse_aggregate_check(torch, dev, gen))
     out.append(decode_attention_check(torch, dev, gen))
     for k in out:
         say(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain "
@@ -275,6 +281,91 @@ def phase_kernels(torch, dev):
             f"{k['bound_ms']:.6f} ms ({k['bound_by']}), max_abs_err "
             f"{k['max_abs_err']}")
     return out
+
+
+def _upload_order_sum(torch, idx, vals, d):
+    """The host's dense sum in upload order: ``numpy.add.at`` in float32
+    over the uploads whose index lies in [0, d)."""
+    import numpy as np
+    idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+    ok = (idx >= 0) & (idx < d)
+    out = np.zeros(d, np.float32)
+    np.add.at(out, idx[ok], vals[ok])
+    return torch.from_numpy(out)
+
+
+def sparse_aggregate_check(torch, dev, gen):
+    """The CUDA kernel bitwise against the host's upload-order sum and
+    against its plain version (ages exact; sums within rtol=1e-5,
+    atol=1e-6, since the plain ``index_add_`` adds with atomics in no
+    fixed order): duplicates, the sentinels d and -2 and other indices out
+    of range, 250,000 uploads into 1,000 coordinates, and the
+    ``SA_SHAPES`` (each client's k indices distinct). At about 250 adds a
+    coordinate the atomics' order moves the plain sums by more than that
+    tolerance, so there the sums are held to the upload-order sum alone.
+    Device times at each shape beside the bound, the plain version and
+    ``index_add_`` into zeros, which computes the dense sum alone, without
+    the age lane."""
+    from repro_torch.kernels import sparse_aggregate as SA
+
+    def check(idx, vals, age, plain_sums=True):
+        d = age.shape[0]
+        dense, new_age = SA.sparse_aggregate(idx, vals, age)
+        dense_p, age_p = SA.sparse_aggregate_plain(idx, vals, age)
+        if plain_sums:
+            torch.testing.assert_close(dense, dense_p, rtol=1e-5, atol=1e-6)
+        if not torch.equal(new_age, age_p):
+            raise AssertionError(f"sparse_aggregate ages differ at d {d}, "
+                                 f"NK {idx.numel()}")
+        if not torch.equal(dense.cpu(),
+                           _upload_order_sum(torch, idx, vals, d)):
+            raise AssertionError(f"sparse_aggregate is not the upload-order "
+                                 f"sum at d {d}, NK {idx.numel()}")
+        if not torch.equal(dense, SA.sparse_aggregate(idx, vals, age)[0]):
+            raise AssertionError("sparse_aggregate is not bitwise repeatable")
+        return float((dense - dense_p).abs().max()) if plain_sums else 0.0
+
+    def ages(d):
+        return torch.randint(0, 30, (d,), generator=gen, device=dev).int()
+
+    err = 0.0
+    for d, nk, span in ((39_760, 100, None), (1000, 3000, None),
+                        (513, 7, None), (2_515_338, 250_000, 1000)):
+        top = span or d
+        idx = torch.randint(-3, top + 3, (nk,), generator=gen, device=dev)
+        q = nk // 4
+        idx[:q] = idx[q:2 * q].clone()                  # duplicates
+        idx[-2:] = torch.tensor([d, -2], device=dev)     # sentinels
+        vals = torch.randn(nk, generator=gen, device=dev)
+        err = max(err, check(idx, vals, ages(d), plain_sums=span is None))
+    shapes = []
+    for n, k, d in SA_SHAPES:
+        idx = torch.stack([torch.randperm(d, generator=gen, device=dev)[:k]
+                           for _ in range(n)]).reshape(-1).int()
+        vals = torch.randn(n * k, generator=gen, device=dev)
+        age = ages(d)
+        err = max(err, check(idx, vals, age))
+        idx64 = idx.long()
+        b, by = bound(8 * n * k + 12 * d, n * k)
+        t = dict(nk=n * k, d=d,
+                 ms=device_ms(lambda: SA.sparse_aggregate(idx, vals, age)),
+                 plain_ms=device_ms(
+                     lambda: SA.sparse_aggregate_plain(idx, vals, age)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=device_ms(lambda: torch.zeros(
+                     d, device=dev).index_add_(0, idx64, vals)))
+        say(f"  sparse_aggregate NK={n * k} ({n} x {k}) d={d}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, index_add_ "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} ({by}); "
+            f"profiled: " + kernel_breakdown(
+                torch, lambda: SA.sparse_aggregate(idx, vals, age)))
+        shapes.append(t)
+    main = {k: shapes[0][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    return dict(name="sparse_aggregate", route="cuda",
+                source="src/repro_torch/kernels/csrc/sparse_aggregate.cu",
+                replaces="src/repro/kernels/sparse_aggregate.py:60",
+                max_abs_err=err, **main, shapes=shapes)
 
 
 def phase_parity(torch, dev, shards, test):
@@ -432,10 +523,7 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e, total=False):
-        name = "device_time_total" if total else "self_device_time_total"
-        return getattr(e, name, getattr(e, name.replace("device", "cuda"), 0))
-
+    dev_us = _dev_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -513,22 +601,35 @@ def _da_close(torch, got, want, tol):
 
 def decode_attention_check(torch, dev, gen):
     """The CUDA kernel against its plain version at the sweep shapes (B 2)
-    in float32 and bfloat16 with cache_len 0, 1, S - 13 and S, bitwise
-    repeatable, and at internlm2's decode shape with a 32,768-position
-    bfloat16 cache, within ``_da_close``; device times beside the bound,
-    the plain version and ``scaled_dot_product_attention``."""
+    in float32 and bfloat16 with cache_len 0, 1, S - 13 and S, with the
+    tile and splits ``choose_splits`` takes and with 1, 2, 3 and 7 splits
+    of small tiles (at cache_len 1 all but the first of those are empty),
+    bitwise repeatable, and at internlm2's decode shape with a
+    32,768-position bfloat16 cache, within ``_da_close``; device times
+    beside the bound, the plain version and
+    ``scaled_dot_product_attention``, and the cut each shape's launch
+    took (``LAST_CUT``)."""
     from repro_torch.kernels import decode_attention as DA
+
+    def cut(q, k, v, clen):
+        DA.decode_attention(q, k, v, clen)
+        c = dict(DA.LAST_CUT)
+        return c, f"{c['splits']} splits of {c['tile_bytes'] // 1024} KB tiles"
 
     def inputs(B, H, G, D, S, dtype):
         return (torch.randn((B, H, D), generator=gen, device=dev).to(dtype),
                 torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype),
                 torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype))
 
-    def check(q, k, v, clen, tol):
-        got = DA.decode_attention(q, k, v, clen)
+    def check(q, k, v, clen, tol, splits=None):
+        def run():
+            if splits is None:
+                return DA.decode_attention(q, k, v, clen)
+            return DA._decode_attention_splits(q, k, v, clen, splits)
+        got = run()
         want = DA.decode_attention_plain(q, k, v, clen)
         atol = _da_close(torch, got, want, tol)
-        if not torch.equal(got, DA.decode_attention(q, k, v, clen)):
+        if not torch.equal(got, run()):
             raise AssertionError("decode_attention is not bitwise repeatable")
         if clen == 0 and got.any():
             raise AssertionError("decode_attention: cache_len 0 is not zeros")
@@ -551,11 +652,13 @@ def decode_attention_check(torch, dev, gen):
     for dtype, tol in DA_TOL.items():
         for H, G, D, S in DA_SWEEP:
             q, k, v = inputs(2, H, G, D, S, getattr(torch, dtype))
-            err = max(check(q, k, v, clen, tol)[0]
-                      for clen in (0, 1, S - 13, S))
+            err = max(check(q, k, v, clen, tol, splits)[0]
+                      for clen in (0, 1, S - 13, S)
+                      for splits in (None, 1, 2, 3, 7))
             t = times(q, k, v, S, tol)
             say(f"  decode_attention B=2 H={H} G={G} D={D} S={S} {dtype}: "
-                f"max_abs_err {err:.3e} (rtol {tol}); at cache_len S kernel "
+                f"max_abs_err {err:.3e} (rtol {tol}); at cache_len S "
+                f"{cut(q, k, v, S)[1]}, kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
                 f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
                 f"({t['bound_by']})")
@@ -564,7 +667,8 @@ def decode_attention_check(torch, dev, gen):
     err, atol = check(q, k, v, S, DA_TOL["bfloat16"])
     t = times(q, k, v, S, DA_TOL["bfloat16"])
     say(f"  decode_attention serve B={B} H={H} G={G} D={D} S={S} bfloat16: "
-        f"max_abs_err {err:.3e} (atol {atol:.2e}); kernel {t['ms']:.4f} ms, "
+        f"max_abs_err {err:.3e} (atol {atol:.2e}); {cut(q, k, v, S)[1]}, "
+        f"kernel {t['ms']:.4f} ms, "
         f"plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
         f"{t['bound_ms']:.6f} ({t['bound_by']})")
     B, H, G, D, S = DA_MAIN
@@ -573,13 +677,19 @@ def decode_attention_check(torch, dev, gen):
             for clen in (0, 1, S - 13, S)]
     err = max(e for e, _ in errs)
     t = times(q, k, v, S, DA_TOL["bfloat16"])
+    main_cut, cut_text = cut(q, k, v, S)
     say(f"  decode_attention internlm2 B={B} H={H} G={G} D={D} S={S} "
         f"bfloat16 ({2 * k.numel() * 2 / 1e9:.2f} GB of K and V): "
-        f"max_abs_err {err:.3e} (atol at cache_len S {errs[-1][1]:.2e})")
+        f"max_abs_err {err:.3e} (atol at cache_len S {errs[-1][1]:.2e}); "
+        f"{cut_text}, kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+        f"{t['bound_ms']:.6f} ({t['bound_by']}); profiled: "
+        + kernel_breakdown(torch, lambda: DA.decode_attention(q, k, v, S)))
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cuh",
                 replaces="src/repro/kernels/decode_attention.py:60",
-                max_abs_err=err, **t)
+                max_abs_err=err, **t, splits=main_cut["splits"],
+                tile_bytes=main_cut["tile_bytes"])
 
 
 def phase_lm_parity(torch, dev):
@@ -704,9 +814,7 @@ def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
+    dev_us = _dev_us
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern) / steps / 1e3
@@ -722,6 +830,89 @@ def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
                     reverse=True)[:8]:
         say(f"  host {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count / steps:7.1f}  {e.key[:80]}")
+
+
+def phase_long_decode(torch, dev, cfg=None):
+    """internlm2-1.8b at full width and depth in bfloat16, random weights
+    from seed 0, with a ``LONG`` cache (8 rows of 32,768 positions: 25.8
+    GB of K and V over 24 layers) filled layer by layer with seeded random
+    values up to position 32,752, then 16 decode steps at positions
+    32,752-32,767: host ms per step after a sync, then the same 16 steps
+    again under ``torch.profiler`` for the device's busy ms per step and
+    ``decode_attention``'s device ms per step. Each run launches
+    ``decode_attention`` once per layer per step and no other kernel, and
+    its logits are finite. Returns the first run's launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import transformer as T
+
+    cfg = cfg or get_config(ARCH)
+    B, S, steps = LONG
+    fill = S - steps
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init(cfg, gen, device=dev)
+    cache = T.init_cache(cfg, B, S, device=dev)
+    for i in range(cfg.n_layers):
+        for name in ("k", "v"):
+            cache[name][i, :, :fill].normal_(generator=gen)
+    tok0 = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    kv_gb = sum(c.numel() * c.element_size() for c in cache.values()) / 1e9
+    say(f"long decode: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, batch "
+        f"{B}, a {S}-position cache ({kv_gb:.2f} GB of K and V) filled to "
+        f"{fill} in {time.perf_counter() - t0:.1f} s; {steps} decode steps "
+        f"at positions {fill}-{S - 1}")
+    want = {k: (cfg.n_layers * steps if k == "decode_attention" else 0)
+            for k in build.LAUNCHES}
+
+    def run():
+        build.reset_launches()
+        tok = tok0
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        for t in range(fill, S):
+            logits, _ = T.decode_step(params, cfg, {"token": tok}, cache, t)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"long decode: kernel launches {launches}, "
+                                 f"expected {want}")
+        if not bool(finite):
+            raise AssertionError("long decode: non-finite logits")
+        return launches
+
+    t0 = time.perf_counter()
+    launches = run()
+    host = (time.perf_counter() - t0) / steps * 1e3
+    say(f"long decode: {host:.2f} ms per step on the host clock after a "
+        f"sync ({B * steps / (host * steps / 1e3):.1f} tokens/s over the "
+        f"batch); launches {launches}; decode_attention's cut at the "
+        f"last step {DA.LAST_CUT}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+
+    dev_us = _dev_us
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / steps / 1e3
+    attn = sum(dev_us(e) for e in kern
+               if "decode_attention" in e.key) / steps / 1e3
+    say(f"long decode: profiled, {wall:.2f} ms per step; device busy "
+        f"{busy:.3f} ms per step (idle {100 - 100 * busy / wall:.1f}%), "
+        f"decode_attention {attn:.3f} ms per step "
+        f"({100 * attn / max(busy, 1e-9):.1f}% of the busy time)")
+    for e in sorted(kern, key=dev_us, reverse=True)[:6]:
+        say(f"  device {dev_us(e) / steps:9.2f} us/step x"
+            f"{e.count / steps:6.1f}  {e.key[:80]}")
+    return launches
 
 
 def main() -> int:
@@ -772,9 +963,12 @@ def main() -> int:
     del eng, rtop
     phase_lm_parity(torch, dev)
     serve = phase_serve(torch, dev, profile)
+    torch.cuda.empty_cache()
+    long = phase_long_decode(torch, dev)
 
     for k in kernels:
-        k["launches"] = sum(run[k["name"]] for run in (launches, base, serve))
+        k["launches"] = sum(run[k["name"]]
+                            for run in (launches, base, serve, long))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (every pointer and the stream are void*)
 SIGNATURES = {
-    "decode_attention": [P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
     "maghist": [P, P, I, I, P],
     "maghist_batch": [P, P, I, I, P],
     "segmented_age_topk": [P, P, P, P, I, I, I, I, I, P],

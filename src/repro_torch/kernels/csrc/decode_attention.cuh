@@ -13,12 +13,22 @@
 // 0.32 ms at 3.35 TB/s) and does 4 float operations per K or V element
 // for each of the rep query rows, far below the card's compute.
 //
-// Design: one block of 256 threads per (batch row, kv group) holds the
-// group's rep query rows, pre-scaled, and walks the cache in tiles of
-// 48 KB of K and 48 KB of V (192 positions at D 128 in bfloat16), staged
-// through shared memory by cp.async two tiles deep: the next tile's 96 KB
-// load while one tile is used (larger tiles beat more stages here: fewer
-// barriers per position). Per tile, three phases between barriers:
+// Design: a split-KV decode with a fixed-order combine. One block (256
+// threads) of the partial kernel per (split, kv group, batch row) walks
+// one contiguous range of the cache: the split's share, cut on the host
+// (kernels/decode_attention.py::choose_splits) so that B * G * splits
+// blocks cover the SMs, every split at least one tile long. One block per
+// (batch row, kv group) alone, 64 blocks at internlm2's B 8, G 8, left
+// half of the 132 SMs idle at a long cache and 130 of them at B x G = 2.
+// A block holds the group's rep query rows, pre-scaled, and walks its
+// range in tiles of K and of V staged through shared memory by cp.async
+// two tiles deep. The tile is one of two sizes, chosen on the host with
+// the splits: 48 KB (192 positions at D 128 in bfloat16, one block an
+// SM) where those blocks fill the SMs or one tile holds the cache, else
+// 24 KB (96 positions, two blocks an SM, one block's barriers hidden
+// behind the other's work) for twice the splits of a short cache with
+// few (batch row, kv group) pairs. Per tile, three phases between
+// barriers:
 // (1) scores: eight lanes take one position (each lane 16-byte chunks
 //     of the row, neighbouring lanes on neighbouring chunks), a warp four
 //     positions at a time, the query rows in registers; a three-step
@@ -31,14 +41,18 @@
 // (3) p @ v: each thread owns two columns of every row over a fixed
 //     group of the tile's positions and adds p * v in position order.
 // The running sum adds the warps' shares in warp order, and at the end the
-// position groups' partial outputs are added in group order: no atomics,
-// so the result is the same run to run. Positions at or past n are never
-// read, which is the TPU kernel's mask (p = 0 there). The output is
-// acc / max(l, 1e-30), so n = 0 gives zeros. At a long cache B * G blocks
-// underfill the 132 SMs (64 blocks at internlm2's B 8, G 8); a split over
-// the cache with a fixed-order combine is the redesign for that.
+// position groups' partial outputs are added in group order. With one
+// split the block writes acc / max(l, 1e-30) itself; with more, it writes
+// its unnormalised float32 state (running max m, sum l, acc[rep][D]) to
+// the wrapper's scratch, and the combine kernel, one block per (head,
+// batch row), folds the splits in split order: M = max m_s, w_s =
+// exp(m_s - M) (0 where m_s = -inf), o = sum w_s acc_s / max(sum w_s l_s,
+// 1e-30). A split that starts at or past n reads nothing and writes
+// m = -inf, l = 0, acc = 0. No atomics anywhere, so the result is the
+// same run to run. Positions at or past n are never read, which is the
+// TPU kernel's mask (p = 0 there); n = 0 gives zeros.
 //
-// The kernel template and its launcher live here; each head dim's
+// The kernel templates and the launcher live here; each head dim's
 // instantiations are compiled in a source of their own
 // (decode_attention_d64.cu, decode_attention.cu for D 128,
 // decode_attention_d256.cu), so the parallel nvcc runs overlap them.
@@ -52,7 +66,9 @@ namespace repro_da {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileBytes = 49152;   // one tile of K (and one of V)
+// bytes of K (and of V) in a tile: two blocks an SM, or one
+constexpr int kSmallTile = 24576;
+constexpr int kLargeTile = 49152;
 constexpr int kStages = 2;          // tiles in the cp.async ring
 constexpr int kGroup = 8;           // lanes that score one position
 
@@ -111,10 +127,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// REP: the power of two >= rep that sizes the register arrays.
-template <typename T, int D, int REP>
+// REP: the power of two >= rep that sizes the register arrays; TB: the
+// tile's bytes.
+template <typename T, int D, int REP, int TB>
 struct Cfg {
-  static constexpr int kTile = kTileBytes / (D * int(sizeof(T)));  // positions
+  static constexpr int kMinBlocks = TB == kSmallTile ? 2 : 1;  // an SM
+  static constexpr int kTile = TB / (D * int(sizeof(T)));  // positions
   static constexpr int kEPC = 16 / int(sizeof(T));        // elements a chunk
   static constexpr int kRowChunks = D / kEPC;             // chunks a row
   static constexpr int kCPL = kRowChunks / kGroup;        // chunks a lane
@@ -128,20 +146,23 @@ struct Cfg {
   static constexpr int kPG = kThreads / kPairs;           // position groups
   static constexpr int kChunk = kTile / kPG;              // a group's positions
   static constexpr size_t kSmem =
-      2 * kStages * kTileBytes +
+      2 * kStages * TB +
       4 * (REP * kTile + REP * D + kWarps * REP + REP * kWPR + 4 * REP);
 };
 
-template <typename T, int D, int REP>
-__global__ void __launch_bounds__(kThreads)
+// part: (B, H, splits, 2 + D) float32, each row m, l, acc[D]; nullptr
+// when there is one split and the block writes out itself.
+template <typename T, int D, int REP, int TB>
+__global__ void __launch_bounds__(kThreads, (Cfg<T, D, REP, TB>::kMinBlocks))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int H,
-                        int G, int S, int n, float scale) {
-  using C = Cfg<T, D, REP>;
+                        const T* __restrict__ v, T* __restrict__ out,
+                        float* __restrict__ part, int H, int G, int S, int n,
+                        int chunk, float scale) {
+  using C = Cfg<T, D, REP, TB>;
   constexpr int TS = C::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   T* kv_s = reinterpret_cast<T*>(smem);           // [kStages][K|V][TS][D]
-  float* p_s = reinterpret_cast<float*>(smem + 2 * kStages * kTileBytes);
+  float* p_s = reinterpret_cast<float*>(smem + 2 * kStages * TB);
   float* q_s = p_s + REP * TS;                    // [REP][D], scaled
   float* wmax_s = q_s + REP * D;                  // [kWarps][REP] tile maxes
   float* wsum_s = wmax_s + kWarps * REP;          // [REP][kWPR] tile sums
@@ -149,13 +170,29 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = m_s + 2 * REP;                     // [REP] running sum
   float* a_s = l_s + REP;                         // [REP] this tile's rescale
 
-  const int g = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
   const int rep = H / G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = lane / kGroup, gl = lane % kGroup;
+  // this split's positions [p_beg, p_beg + n_split) of the first n
+  const int p_beg = min(n, split * chunk);
+  const int n_split = min(chunk, n - p_beg);
+  // row r's (m, l, acc[D]) in part
+  auto part_row = [&](int r) {
+    return part + ((static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep + r) *
+                       splits + split) * (2 + D);
+  };
+  if (part != nullptr && n_split == 0) {   // an empty split reads nothing
+    for (int i = tid; i < rep * (2 + D); i += kThreads) {
+      const int r = i / (2 + D), c = i % (2 + D);
+      part_row(r)[c] = c == 0 ? -CUDART_INF_F : 0.f;
+    }
+    return;
+  }
   const size_t pos_stride = static_cast<size_t>(G) * D;
-  const T* kb = k + (static_cast<size_t>(b) * S * G + g) * D;
-  const T* vb = v + (static_cast<size_t>(b) * S * G + g) * D;
+  const T* kb = k + ((static_cast<size_t>(b) * S + p_beg) * G + g) * D;
+  const T* vb = v + ((static_cast<size_t>(b) * S + p_beg) * G + g) * D;
   const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep) * D;
 
   for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_f32(qb[i]) * scale;
@@ -166,10 +203,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     a_s[tid] = 0.f;
   }
 
-  const int ntiles = (n + TS - 1) / TS;
+  const int ntiles = (n_split + TS - 1) / TS;
   auto load = [&](int t) {
     if (t < ntiles) {
-      const int p0 = t * TS, cnt = min(TS, n - p0);
+      const int p0 = t * TS, cnt = min(TS, n_split - p0);
       char* dk = reinterpret_cast<char*>(kv_s + static_cast<size_t>(t % kStages) * 2 * TS * D);
       char* dv = dk + TS * D * sizeof(T);
       for (int i = tid; i < cnt * C::kRowChunks; i += kThreads) {
@@ -196,7 +233,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const T* ks = kv_s + static_cast<size_t>(t % kStages) * 2 * TS * D;
     const T* vs = ks + TS * D;
-    const int cnt = min(TS, n - t * TS);
+    const int cnt = min(TS, n_split - t * TS);
     const float* m_prev_s = m_s + (t & 1) * REP;
     float* m_next_s = m_s + ((t + 1) & 1) * REP;
 
@@ -353,9 +390,36 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sum = 0.f;
 #pragma unroll
     for (int h = 0; h < C::kPG; ++h) sum += red[(h * REP + r) * D + c];
-    out[(static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep + r) * D + c] =
-        from_f32<T>(sum / fmaxf(l_s[r], 1e-30f));
+    if (part == nullptr)
+      out[(static_cast<size_t>(b) * H + static_cast<size_t>(g) * rep + r) * D + c] =
+          from_f32<T>(sum / fmaxf(l_s[r], 1e-30f));
+    else
+      part_row(r)[2 + c] = sum;
   }
+  if (part != nullptr && tid < rep) {
+    part_row(tid)[0] = m_s[(ntiles & 1) * REP + tid];   // the last tile's m_next
+    part_row(tid)[1] = l_s[tid];
+  }
+}
+
+// One block of D threads per (head, batch row): the splits' states folded
+// in split order, thread c owning column c.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+decode_attention_combine(const float* __restrict__ part, T* __restrict__ out,
+                         int H, int splits) {
+  const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
+  const float* row = part + (static_cast<size_t>(b) * H + h) * splits * (2 + D);
+  float m = -CUDART_INF_F;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, row[s * (2 + D)]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float* st = row + s * (2 + D);
+    const float w = isinf(st[0]) ? 0.f : expf(st[0] - m);
+    num += w * st[2 + c];
+    den += w * st[1];
+  }
+  out[(static_cast<size_t>(b) * H + h) * D + c] = from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
 struct Args {
@@ -363,33 +427,46 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int B, H, G, S, n;
+  float* part;   // (B, H, splits, 2 + D) scratch when splits > 1
+  int B, H, G, S, n, splits, chunk, tile_bytes;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D, int REP>
+template <typename T, int D, int REP, int TB>
 cudaError_t launch(const Args& a) {
-  auto kern = decode_attention_kernel<T, D, REP>;
-  constexpr size_t smem = Cfg<T, D, REP>::kSmem;
-  const cudaError_t e = cudaFuncSetAttribute(
+  auto kern = decode_attention_kernel<T, D, REP, TB>;
+  constexpr size_t smem = Cfg<T, D, REP, TB>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<dim3(a.G, a.B), kThreads, smem, a.stream>>>(
+  float* part = a.splits > 1 ? a.part : nullptr;
+  kern<<<dim3(a.splits, a.G, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.H, a.G, a.S, a.n,
-      a.scale);
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), part, a.H, a.G,
+      a.S, a.n, a.chunk, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return e;
+  decode_attention_combine<T, D><<<dim3(a.H, a.B), D, 0, a.stream>>>(
+      part, static_cast<T*>(a.out), a.H, a.splits);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int TB>
 cudaError_t by_rep(const Args& a) {
   const int rep = a.H / a.G;
-  if (rep <= 1) return launch<T, D, 1>(a);
-  if (rep <= 2) return launch<T, D, 2>(a);
-  if (rep <= 4) return launch<T, D, 4>(a);
-  if (rep <= 8) return launch<T, D, 8>(a);
-  if (rep <= 16) return launch<T, D, 16>(a);
+  if (rep <= 1) return launch<T, D, 1, TB>(a);
+  if (rep <= 2) return launch<T, D, 2, TB>(a);
+  if (rep <= 4) return launch<T, D, 4, TB>(a);
+  if (rep <= 8) return launch<T, D, 8, TB>(a);
+  if (rep <= 16) return launch<T, D, 16, TB>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t by_tile(const Args& a) {
+  if (a.tile_bytes == kSmallTile) return by_rep<T, D, kSmallTile>(a);
+  if (a.tile_bytes == kLargeTile) return by_rep<T, D, kLargeTile>(a);
   return cudaErrorInvalidValue;
 }
 

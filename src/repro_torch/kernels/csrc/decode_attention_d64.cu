@@ -4,7 +4,7 @@
 namespace repro_da {
 
 cudaError_t launch_d64(bool bf16, const Args& a) {
-  return bf16 ? by_rep<__nv_bfloat16, 64>(a) : by_rep<float, 64>(a);
+  return bf16 ? by_tile<__nv_bfloat16, 64>(a) : by_tile<float, 64>(a);
 }
 
 }  // namespace repro_da

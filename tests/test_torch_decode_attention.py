@@ -14,6 +14,13 @@ layer, which rounds q * scale and the softmax weights to the cache dtype
 before its products, float32 agrees to 1e-5 and bfloat16 to 1e-2 (about
 1e-3 seen).
 
+The kernel cuts the cache into splits and combines them in split order;
+``decode_attention_split_plain`` is that arithmetic in PyTorch, held here
+against the same references with 1, 2, 3 and 7 splits (empty ones
+included), at the same tolerances, and ``choose_splits``, the host's cut,
+is held to covering every position once and to the tile the card's
+times chose at internlm2's shapes.
+
 The tests marked ``cuda`` hold the CUDA kernel against its plain version
 on the card and skip where there is none. They need no JAX, so the file
 also runs on a machine with a card and no JAX (the comparisons with the
@@ -97,6 +104,97 @@ def test_matches_model_layer(jax_ref, dtype, tol, clen):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
 
 
+SPLITS = [1, 2, 3, 7]
+
+
+def _clens(S, D, itemsize):
+    """0, 1, S - 13, S, and a cache_len past one tile but short of a
+    third, so that 7 splits of one tile leave empty ones."""
+    return (0, 1, S - 13, S, min(S, DA.tile_positions(D, itemsize) + 5))
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("H,G,D,S", SWEEP)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_split_plain_matches_pallas_kernel(jax_ref, H, G, D, S, dtype,
+                                           splits):
+    """The kernel's split-and-combine against the Pallas kernel and the
+    plain version, empty splits included."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, H, G, D, S, H * S), dtype)
+    tol = DTYPES[dtype][1]
+    for clen in _clens(S, D, tq.element_size()):
+        got = DA.decode_attention_split_plain(tq, tk, tv, clen, splits)
+        assert got.dtype == tq.dtype and got.shape == (2, H, D)
+        for want in (_f32(jops.decode_attention(jq, jk, jv, clen)),
+                     _f32(DA.decode_attention_plain(tq, tk, tv, clen))):
+            np.testing.assert_allclose(_f32(got), want, rtol=tol,
+                                       atol=_atol(want, tol),
+                                       err_msg=f"cache_len={clen}")
+        if clen == 0:
+            assert not got.any()
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+def test_split_plain_matches_model_layer(jax_ref, dtype, tol, splits):
+    """Against ``repro.models.layers.decode_attention`` at the tolerances
+    of :func:`test_matches_model_layer`."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, 8, 4, 64, 512, 7), dtype)
+    for clen in (400, 512):
+        want = JL.decode_attention(jq, jk, jv, clen)
+        got = DA.decode_attention_split_plain(tq, tk, tv, clen, splits)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("D,itemsize", [(64, 2), (128, 2), (256, 4)])
+def test_choose_splits_cuts_every_position_once(D, itemsize):
+    """Every valid position lies in exactly one split, there is at least
+    one split, none is empty, and only the last is shorter than a tile;
+    the blocks stay within one wave of the card once there are two or
+    more splits."""
+    large = DA.tile_positions(D, itemsize, DA.LARGE_TILE)
+    for blocks in (1, 2, 16, 64, 128, 300):
+        for n in (0, 1, large - 1, large, large + 1, 1000, 4099, 32_768):
+            tile_bytes, splits, chunk = DA.choose_splits(blocks, n, D,
+                                                         itemsize, 132)
+            tile = DA.tile_positions(D, itemsize, tile_bytes)
+            assert splits >= 1 and chunk % tile == 0 and chunk >= tile
+            ranges = [(s * chunk, min(n, (s + 1) * chunk))
+                      for s in range(splits)]
+            covered = [p for lo, hi in ranges for p in range(lo, hi)]
+            assert covered == list(range(n))
+            assert all(hi > lo for lo, hi in ranges) or n == 0
+            assert all(hi - lo >= tile for lo, hi in ranges[:-1])
+            if splits > 1:
+                assert blocks * splits <= 132 * DA.BLOCKS_PER_SM[tile_bytes]
+
+
+@pytest.mark.parametrize("blocks,n,want", [
+    (64, 32_768, (DA.LARGE_TILE, 2, 16_512)),   # internlm2 at 32K
+    (64, 160, (DA.LARGE_TILE, 1, 192)),         # the serve cache
+    (2, 1024, (DA.SMALL_TILE, 11, 96)),         # G = 1 at B 2
+])
+def test_choose_splits_takes_the_tile_that_won_on_the_card(blocks, n, want):
+    """bfloat16 at D 128: the large tile where its blocks fill the SMs or
+    one tile holds the cache, the small one for a short cache with few
+    (batch row, kv group) pairs, as the H100's times chose (PERF.md)."""
+    assert DA.choose_splits(blocks, n, 128, 2, 132) == want
+
+
+def test_split_chunk_leaves_empty_splits_past_a_short_cache():
+    """With more splits than tiles, the splits past the cache are empty,
+    and the split-and-combine still equals the plain version."""
+    assert DA.split_chunk(1, 7, 96) == 96
+    assert DA.split_chunk(200, 7, 96) == 96      # 3 of 7 hold positions
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 4, 2, 128, 300, 5))
+    for clen in (1, 200):
+        torch.testing.assert_close(
+            DA.decode_attention_split_plain(q, k, v, clen, 7),
+            DA.decode_attention_plain(q, k, v, clen), rtol=2e-5, atol=2e-5)
+
+
 def test_ignores_what_lies_past_cache_len():
     """Positions >= cache_len are never read: NaN there changes nothing."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 64, 40, 3))
@@ -129,7 +227,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,G,D,S", SWEEP + [(16, 8, 128, 4099),
                                              (12, 4, 64, 77),
-                                             (16, 1, 64, 300)])
+                                             (16, 1, 64, 300),
+                                             (16, 8, 128, 8192)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])
@@ -144,3 +243,29 @@ def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
             got.float(), want.float(), rtol=tol,
             atol=_atol(want.float().cpu().numpy(), tol))
         assert torch.equal(got, DA.decode_attention(q, k, v, clen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_splits_match_split_plain(cuda, dtype, splits):
+    """The kernel with a given number of splits, empty ones included,
+    against its split-and-combine in PyTorch and the plain version; one
+    launch a call, bitwise repeatable."""
+    H, G, D, S = 16, 8, 128, 1024
+    q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])
+               for a in _inputs(2, H, G, D, S, splits))
+    tol = DTYPES[dtype][1]
+    for clen in _clens(S, D, q.element_size()):
+        before = build.LAUNCHES["decode_attention"]
+        got = DA._decode_attention_splits(q, k, v, clen, splits)
+        assert build.LAUNCHES["decode_attention"] == before + 1
+        for want in (DA.decode_attention_split_plain(q, k, v, clen, splits),
+                     DA.decode_attention_plain(q, k, v, clen)):
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=tol,
+                atol=_atol(want.float().cpu().numpy(), tol))
+        assert torch.equal(got, DA._decode_attention_splits(q, k, v, clen,
+                                                            splits))
+        if clen == 0:
+            assert not got.any()

@@ -10,18 +10,24 @@ by a one-hot matmul, whose order differs from upload order once three or
 more uploads share an index).
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
-on the card and skip where there is none.
+on the card and skip where there is none; ``sparse_aggregate``'s dense
+sum there must also equal ``numpy.add.at`` in float32, bitwise, since
+the kernel adds each coordinate's uploads in upload order. They need no
+JAX, so the file also runs on a machine with a card and no JAX (the
+comparisons with the JAX package then skip).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
-
-from repro.kernels import maghist as JMH
-from repro.kernels import ops as jops
+try:
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import maghist as JMH
+    from repro.kernels import ops as jops
+except ImportError:
+    jax = None
 
 from repro_torch.kernels import build
 from repro_torch.kernels import maghist as MH
@@ -32,6 +38,12 @@ from repro_torch.kernels import sparse_aggregate as SA
 _SPECIAL = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -3e-39,
                      2.0 ** -45, 2.0 ** -40, 2.0 ** -39, 3e38, 1.0, -1.0,
                      2.0 ** 23, 2.0 ** 24], np.float32)
+
+
+@pytest.fixture
+def jax_ref():
+    if jax is None:
+        pytest.skip("needs JAX, the reference")
 
 
 def _grads(n, d, seed, *, special=True, ties=False):
@@ -48,7 +60,7 @@ def _grads(n, d, seed, *, special=True, ties=False):
 
 
 @pytest.mark.parametrize("n,d", [(1, 512), (3, 1000), (10, 39_760 // 8)])
-def test_hist_rows_matches_pallas_maghist(n, d):
+def test_hist_rows_matches_pallas_maghist(jax_ref, n, d):
     G = _grads(n, d, seed=n * d)
     pad = (-d) % 512
     hist_j = np.array(JMH.maghist_batch(
@@ -64,7 +76,7 @@ def test_hist_rows_matches_pallas_maghist(n, d):
 
 
 @pytest.mark.parametrize("d", [4096, 9000, 13])
-def test_hist_blocks_matches_pallas_maghist(d):
+def test_hist_blocks_matches_pallas_maghist(jax_ref, d):
     """Per-block histograms of each row against the single-vector Pallas
     kernel on the zero-padded row, as the reference's wrapper pads."""
     G = _grads(3, d, seed=d)
@@ -84,7 +96,7 @@ def test_hist_blocks_matches_pallas_maghist(d):
 
 @pytest.mark.parametrize("d,r", [(9000, 75), (777, 10), (300, 200),
                                  (13, 13)])
-def test_threshold_topk_matches_reference(d, r):
+def test_threshold_topk_matches_reference(jax_ref, d, r):
     """One vector and row-wise, vals (masked magnitudes) and indices
     exactly, on rows with NaN, inf, zeros, denormals and magnitude ties."""
     G = _grads(3, d, seed=d + r, ties=True)
@@ -102,7 +114,7 @@ def test_threshold_topk_matches_reference(d, r):
     np.testing.assert_array_equal(t_vals.numpy(), np.asarray(j_vals))
 
 
-def test_threshold_topk_nan_laws():
+def test_threshold_topk_nan_laws(jax_ref):
     """The result is the stable top-r of where(isnan, -1, |g|) for any
     input: NaN is never a candidate, the finite and inf top-r always is."""
     rng = np.random.default_rng(9)
@@ -131,7 +143,8 @@ def test_threshold_topk_nan_laws():
     (4, 1000, 75, False, False), (4, 1000, 75, False, True),
     (3, 777, 10, True, False), (2, 300, 200, False, True),
     (2, 100, 90, True, False)])
-def test_threshold_topk_batch_matches_reference(n, d, r, special, ties):
+def test_threshold_topk_batch_matches_reference(jax_ref, n, d, r, special,
+                                               ties):
     G = _grads(n, d, seed=d + r, special=special, ties=ties)
     G[0, :d // 2] = 0.0                 # a half-zero row
     Gt = torch.from_numpy(G)
@@ -161,7 +174,8 @@ def _segment_inputs(C, S, r, seed):
 @pytest.mark.parametrize("C,S,r,k", [(10, 2, 75, 10), (3, 4, 20, 5),
                                      (2, 3, 7, 7), (1, 1, 130, 3)])
 @pytest.mark.parametrize("disjoint", [True, False])
-def test_segmented_age_topk_plain_matches_pallas(C, S, r, k, disjoint):
+def test_segmented_age_topk_plain_matches_pallas(jax_ref, C, S, r, k,
+                                                 disjoint):
     cand, age, valid = _segment_inputs(C, S, r, seed=C * S * r + k)
     out_j = np.asarray(jops.segmented_age_topk(
         jnp.asarray(cand), jnp.asarray(age), jnp.asarray(valid), k,
@@ -189,7 +203,7 @@ def test_segmented_age_topk_semantics_and_k_check():
 
 @pytest.mark.parametrize("d,nk", [(1000, 100), (39_760 // 8, 300),
                                   (513, 2000)])
-def test_sparse_aggregate_plain_matches_pallas(d, nk):
+def test_sparse_aggregate_plain_matches_pallas(jax_ref, d, nk):
     rng = np.random.default_rng(d + nk)
     idx = rng.integers(0, d, nk).astype(np.int32)
     idx[: nk // 4] = idx[nk // 4: nk // 2]          # duplicates
@@ -283,12 +297,46 @@ def test_sparse_aggregate_kernel_matches_plain(cuda, d, nk):
     dense_p, age_p = SA.sparse_aggregate_plain(*args)
     torch.testing.assert_close(dense, dense_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(new_age, age_p, rtol=0, atol=0)
+    np.testing.assert_array_equal(dense.cpu().numpy(),
+                                  _upload_order_sum(idx, vals, d))
     again, _ = SA.sparse_aggregate(*args)
     assert torch.equal(dense, again)            # no order-varying atomics
 
 
+def _upload_order_sum(idx, vals, d):
+    ok = (idx >= 0) & (idx < d)
+    out = np.zeros(d, np.float32)
+    np.add.at(out, idx[ok], vals[ok])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,span", [(1000, None), (250_000, 1000),
+                                     (250_000, None)])
+def test_sparse_aggregate_kernel_is_the_upload_order_sum(cuda, nk, span):
+    """At the CIFAR CNN's d = 2,515,338: the paper's 10 x 100 uploads,
+    250,000 uploads into 1,000 coordinates (about 250 a coordinate), and
+    250,000 spread over d. Dense sums bitwise equal to numpy.add.at in
+    float32, ages exactly the plain version's."""
+    d = 2_515_338
+    rng = np.random.default_rng(nk + (span or 0))
+    idx = rng.integers(-3, (span or d) + 3, nk).astype(np.int32)
+    idx[-2:] = d, -2
+    vals = rng.standard_normal(nk).astype(np.float32)
+    age = rng.integers(0, 30, d).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, vals, age)]
+    before = build.LAUNCHES["sparse_aggregate"]
+    dense, new_age = SA.sparse_aggregate(*args)
+    assert build.LAUNCHES["sparse_aggregate"] == before + 1
+    np.testing.assert_array_equal(dense.cpu().numpy(),
+                                  _upload_order_sum(idx, vals, d))
+    torch.testing.assert_close(new_age, SA.sparse_aggregate_plain(*args)[1],
+                               rtol=0, atol=0)
+    assert torch.equal(dense, SA.sparse_aggregate(*args)[0])
+
+
 @pytest.mark.parametrize("masked", [False, True])
-def test_server_aggregation_matches(masked):
+def test_server_aggregation_matches(jax_ref, masked):
     """fl.server: the client-layout sum and the fused sum + hit ages, with
     a per-row mask and sentinel rows, against the reference's XLA path."""
     from repro.fl import server as JSrv
