@@ -250,7 +250,8 @@ def client_candidates(G: torch.Tensor, r: int,
     """Per-client top-r magnitude candidate report, |g|-descending with
     ties to the lower index: (N, d) -> (N, r) int32. 'threshold' is the
     histogram two-pass plane over whole rows (``ops.threshold_topk_batch``,
-    the ``maghist_batch`` kernel on the card), 'sort' the full stable
+    the ``maghist_batch`` and ``threshold_topk_batch`` kernels on the
+    card), 'sort' the full stable
     sort; both give the same indices for NaN-free G."""
     if impl == "threshold":
         return ops.threshold_topk_batch(G, r)

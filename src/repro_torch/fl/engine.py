@@ -8,7 +8,8 @@ One rAge-k round, all on the engine's device:
 
 1. draw each client's H batches from the device shard store;
 2. run H Adam steps per client, keep the flat last-step gradient and its
-   top-r candidate report (the ``maghist_batch`` kernel on the card);
+   top-r candidate report (on the card the ``maghist_batch`` and
+   ``threshold_topk_batch`` kernels);
 3. pick k indices per client by cluster age, disjoint within a cluster
    (``selection='segmented'``: the ``segmented_age_topk`` kernel;
    ``'scan'``: the sequential reference :func:`rage_select`);

@@ -35,9 +35,10 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
     "maghist": [P, P, I, I, P],
-    "maghist_batch": [P, P, I, I, P],
-    "segmented_age_topk": [P, P, P, P, I, I, I, I, I, P],
+    "maghist_batch": [P, P, P, P, I, I, I, P],
+    "segmented_age_topk": [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "sparse_aggregate": [P, P, P, P, P, I, I, P],
+    "threshold_topk_batch": [P, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 LAUNCHES = {name: 0 for name in SIGNATURES}
 

@@ -9,11 +9,13 @@ needs "mag in bin b implies mag >= 2^(b - OFFSET)" exactly. NaN goes to
 bin 0 (never a candidate), +/-inf to the top bin, zeros and denormals to
 bin 0.
 
-Two kernels share the bin function (``csrc/exponent_bins.cuh``):
+Three kernels share the bin function (``csrc/exponent_bins.cuh``):
 :func:`maghist_batch` (``csrc/maghist.cu``) writes one histogram per row,
-:func:`hist_rows` is its plain version; :func:`maghist`
-(``csrc/maghist_blocks.cu``) writes one histogram per 4096-block of each
-row, :func:`hist_blocks` is its plain version.
+:func:`hist_rows` is its plain version; its first kernel, the counts of
+each block of a row, is also the first pass of the candidate report
+(``kernels/report.py``, whose second pass is ``csrc/report.cu``);
+:func:`maghist` (``csrc/maghist_blocks.cu``) writes one histogram per
+4096-block of each row, :func:`hist_blocks` is its plain version.
 """
 from __future__ import annotations
 
@@ -24,6 +26,17 @@ from repro_torch.kernels import build
 NBINS = 64
 OFFSET = 40          # exponent -40 .. +23 covered
 BLOCK_D = 4096       # elements per block of the per-block histograms
+MAX_PARTS = 64       # blocks per row of maghist_batch and the report
+SUB_BITS = 2         # the report's fine bins: quarter binades
+SLOTS = (NBINS << SUB_BITS) + 1   # a block's counts: fine bins, then NaN
+
+
+def chunk_for(d: int) -> int:
+    """The elements of a row that one block of :func:`maghist_batch` (and
+    of the report's second pass) owns: the least multiple of ``BLOCK_D``
+    that cuts d into at most ``MAX_PARTS`` blocks, so that every block of
+    the second pass can sum its row's block counts."""
+    return BLOCK_D * -(-d // (BLOCK_D * MAX_PARTS))
 
 
 def exponent_bins(mag: torch.Tensor) -> torch.Tensor:
@@ -32,6 +45,18 @@ def exponent_bins(mag: torch.Tensor) -> torch.Tensor:
     e = (mag.view(torch.int32) >> 23) & 0xFF
     b = (e - 127 + OFFSET).clamp(0, NBINS - 1).to(torch.int64)
     return torch.where(torch.isnan(mag), 0, b)
+
+
+def fine_slots(G: torch.Tensor) -> torch.Tensor:
+    """The report's count slot of every value (``report_slot`` in
+    ``csrc/exponent_bins.cuh``): NaN -> SLOTS - 1, else bin * 4 + the top
+    two mantissa bits, bin * 4 alone in the edge bins 0 and 63. Slots are
+    ordered as the magnitudes are; int64."""
+    mag = G.to(torch.float32).abs()
+    b = exponent_bins(mag)
+    sub = (mag.view(torch.int32) >> (23 - SUB_BITS)) & ((1 << SUB_BITS) - 1)
+    sub = torch.where((b == 0) | (b == NBINS - 1), 0, sub)
+    return torch.where(torch.isnan(mag), SLOTS - 1, (b << SUB_BITS) | sub)
 
 
 def hist_rows(G: torch.Tensor) -> torch.Tensor:
@@ -43,16 +68,40 @@ def hist_rows(G: torch.Tensor) -> torch.Tensor:
                        device=G.device).scatter_add_(1, b, ones)
 
 
-def maghist_batch(G: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel: (N, d) float32 on the card -> (N, NBINS) int32."""
+def _launch_counts(G: torch.Tensor, ctr, rows: bool):
     G = G.to(torch.float32).contiguous()
     build.require_cuda("maghist_batch", G)
     n, d = G.shape
-    if n > 65535:
-        raise ValueError(f"maghist_batch: at most 65535 rows, got {n}")
-    hist = torch.zeros((n, NBINS), dtype=torch.int32, device=G.device)
-    build.call("maghist_batch", G.data_ptr(), hist.data_ptr(), n, d)
-    return hist
+    if not (1 <= n <= 65535 and d >= 1):
+        raise ValueError(f"maghist_batch: needs 1 to 65535 rows and d >= 1, "
+                         f"got {tuple(G.shape)}")
+    chunk = chunk_for(d)
+    counts = torch.empty((n, -(-d // chunk), SLOTS), dtype=torch.int32,
+                         device=G.device)
+    hist = (torch.empty((n, NBINS), dtype=torch.int32, device=G.device)
+            if rows else None)
+    build.call("maghist_batch", G.data_ptr(), counts.data_ptr(),
+               None if ctr is None else ctr.data_ptr(),
+               None if hist is None else hist.data_ptr(), n, d, chunk)
+    return counts, hist
+
+
+def maghist_batch(G: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel: (N, d) float32 on the card -> (N, NBINS) int32. One
+    launch count, two kernels: the counts of each block of a row
+    (:func:`block_counts`), then their sum per row and bin in block
+    order."""
+    return _launch_counts(G, None, rows=True)[1]
+
+
+def block_counts(G: torch.Tensor, ctr: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """CUDA kernel: (N, d) float32 on the card -> (N, ceil(d / chunk),
+    SLOTS) int32: each block's counts by :func:`fine_slots` (``chunk_for(d)``
+    elements a block); the four fine bins of bin b sum to bin b. Also
+    zeroes ``ctr`` (N,) int32, the report's hand-off counters, when
+    given."""
+    return _launch_counts(G, ctr, rows=False)[0]
 
 
 def hist_blocks(G: torch.Tensor) -> torch.Tensor:

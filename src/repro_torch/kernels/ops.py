@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import maghist as MH
+from repro_torch.kernels import report as RP
 from repro_torch.kernels import segmented_topk as ST
 from repro_torch.kernels import sparse_aggregate as SA
 
@@ -63,17 +64,6 @@ def maghist(g: torch.Tensor) -> torch.Tensor:
     return MH.hist_blocks(g)
 
 
-def _masked_topr(mag: torch.Tensor, tau: torch.Tensor, r: int):
-    """Non-candidates (|g| < tau, and NaN) drop to -1; the survivors get a
-    stable descending sort, ties to the lower index as ``lax.top_k`` does
-    (``torch.topk`` promises no order on ties). Returns (vals, idx) of the
-    first r."""
-    masked = torch.where(mag >= tau.unsqueeze(1), mag,
-                         torch.full_like(mag, -1.0))
-    vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
-    return vals[:, :r], idx[:, :r]
-
-
 def threshold_topk(g: torch.Tensor, r: int):
     """Two-pass top-r of one vector (d,), or of each row of (N, d): the
     per-block histograms (``maghist``) give tau, then the stable top-r of
@@ -83,7 +73,7 @@ def threshold_topk(g: torch.Tensor, r: int):
     NaN is never a candidate."""
     rows = g.reshape(-1, g.shape[-1])
     tau = MH.threshold_from_hist(maghist(rows), r)
-    vals, idx = _masked_topr(rows.to(torch.float32).abs(), tau, r)
+    vals, idx = RP.masked_topr(rows.to(torch.float32).abs(), tau, r)
     shape = (*g.shape[:-1], r)
     return vals.reshape(shape), idx.to(torch.int32).reshape(shape)
 
@@ -92,10 +82,12 @@ def threshold_topk_batch(G: torch.Tensor, r: int) -> torch.Tensor:
     """Two-pass top-r candidate report: (N, d) -> (N, r) int32 indices,
     equal to a stable top-r of |G| for NaN-free G (NaN is never a
     candidate). The exponent histogram gives a threshold tau that keeps
-    the exact top-r set among the candidates {|g| >= tau}."""
-    mag = G.to(torch.float32).abs()
-    tau = MH.threshold_from_hist_batch(maghist_batch(G), r)
-    return _masked_topr(mag, tau, r)[1].to(torch.int32)
+    the exact top-r set among the candidates {|g| >= tau}; on the card two
+    launches compute the histogram, tau and the ranked survivors
+    (``kernels/report.py``)."""
+    if _on_card("threshold_topk_batch", G):
+        return RP.threshold_topk_batch(G, r)
+    return RP.threshold_topk_batch_plain(G, r)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; those
 are held against the Pallas kernels run in interpret mode, on inputs made
@@ -244,16 +244,29 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(10, 39_760), (3, 1000), (1, 4097)])
+@pytest.mark.parametrize("n,d", [(10, 39_760), (3, 1000), (1, 4097),
+                                 (6, 2_515_338)])
 def test_maghist_batch_kernel_matches_plain(cuda, n, d):
+    """The histogram alone, then the report (two launches) on the same rows
+    and on rows of one value, one binade and few magnitudes (the refine),
+    card against CPU exactly; r = 75, and the CIFAR r = 2,500 at its d."""
     G = torch.from_numpy(_grads(n, d, seed=d)).to(cuda)
     before = build.LAUNCHES["maghist_batch"]
     got = MH.maghist_batch(G)
     assert build.LAUNCHES["maghist_batch"] == before + 1
     torch.testing.assert_close(got, MH.hist_rows(G), rtol=0, atol=0)
-    np.testing.assert_array_equal(
-        ops.threshold_topk_batch(G, 75).cpu().numpy(),
-        ops.threshold_topk_batch(G.cpu(), 75).numpy())
+    r = 2500 if d > 1_000_000 else 75
+    rng = np.random.default_rng(d)
+    refine = np.stack([np.full(d, 0.3), 1.0 + rng.random(d),
+                       np.round(rng.standard_normal(d) * 4) / 4])
+    for rows in (G, torch.from_numpy(refine.astype(np.float32)).to(cuda)):
+        before = dict(build.LAUNCHES)
+        got = ops.threshold_topk_batch(rows, r)
+        assert {k: build.LAUNCHES[k] - before[k] for k in before} == {
+            k: int(k in ("maghist_batch", "threshold_topk_batch"))
+            for k in before}
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), ops.threshold_topk_batch(rows.cpu(), r).numpy())
 
 
 @pytest.mark.cuda
@@ -273,15 +286,27 @@ def test_maghist_kernel_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,S,r,k", [(10, 2, 75, 10), (3, 4, 300, 5),
-                                     (2, 3, 7, 7)])
+                                     (2, 3, 7, 7), (10, 1, 75, 10),
+                                     (5, 2, 75, 10), (6, 1, 2500, 100),
+                                     (3, 2, 2500, 100)])
 @pytest.mark.parametrize("disjoint", [True, False])
 def test_segmented_age_topk_kernel_matches_plain(cuda, C, S, r, k, disjoint):
+    """fig3 and CIFAR before and after the first recluster, and with r = k
+    and equal ages, where members after the first take taken lanes."""
     cand, age, valid = (torch.from_numpy(a).to(cuda)
                         for a in _segment_inputs(C, S, r, seed=r))
     got = ST.segmented_age_topk(cand, age, valid, k, disjoint=disjoint)
     want = ST.segmented_age_topk_plain(cand, age, valid, k,
                                        disjoint=disjoint)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if S > 1:
+        same = cand[:, :1].expand(C, S, r).contiguous()
+        ages = torch.full_like(same, 2)
+        ones = torch.ones_like(valid)
+        torch.testing.assert_close(
+            ST.segmented_age_topk(same, ages, ones, r, disjoint=disjoint),
+            ST.segmented_age_topk_plain(same, ages, ones, r,
+                                        disjoint=disjoint), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -311,10 +336,11 @@ def _upload_order_sum(idx, vals, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nk,span", [(1000, None), (250_000, 1000),
-                                     (250_000, None)])
+@pytest.mark.parametrize("nk,span", [(600, None), (1000, None),
+                                     (250_000, 1000), (250_000, None)])
 def test_sparse_aggregate_kernel_is_the_upload_order_sum(cuda, nk, span):
-    """At the CIFAR CNN's d = 2,515,338: the paper's 10 x 100 uploads,
+    """At the CIFAR CNN's d = 2,515,338: the paper's 6 x 100 uploads
+    (paper_cifar_split has 6 clients), 1,000 uploads,
     250,000 uploads into 1,000 coordinates (about 250 a coordinate), and
     250,000 spread over d. Dense sums bitwise equal to numpy.add.at in
     float32, ages exactly the plain version's."""
