@@ -13,8 +13,12 @@ the last line:
    floats within the stated tolerance), with device times: the rAge-k
    candidate report (two launches) card == CPU at fig3 and at the CIFAR
    report (6 x 2,515,338, r 2,500) on rows that drive each of its
-   branches, beside ``torch.topk``; ``segmented_age_topk`` at the fig3 and
-   CIFAR selection shapes;
+   branches, beside ``torch.topk``, and past its shared sort (r 20,000 and
+   10,000); the baselines' report (``ops.threshold_topk``, the same two
+   launches with the magnitudes) at fig3 and CIFAR beside ``torch.topk``;
+   ``segmented_age_topk`` at the fig3 and CIFAR selection shapes and at
+   clusters past one block (S 156 and 256 at fig3's r and k, CIFAR's six
+   clients in one cluster); ``decode_attention`` at head dims 32 to 256;
 4. parity: one fig3 round on the card against the same round on the CPU
    (the plain versions) from the same params and batches, for rAge-k
    (segmented and scan), CAFe, top-k, dense and rTop-k;
@@ -24,12 +28,15 @@ the last line:
    kernels (the report's two, the selection, the aggregation) launched
    exactly once per round (``maghist`` never);
 6. baselines: rTop-k, the paper's Fig. 3 counterpart, for 20 rounds
-   (``maghist`` and ``sparse_aggregate`` once per round, clusters stay
-   singletons), then 5 rounds each of CAFe, top-k, random-k, dense and
-   rAge-k scan, each round checked against its method's kernel launches;
+   (the report's two kernels and ``sparse_aggregate`` once per round,
+   ``maghist`` never; clusters stay singletons), then 5 rounds each of
+   CAFe, top-k, random-k, dense and rAge-k scan, each round checked
+   against its method's kernel launches;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
-   on the CPU (logits, greedy tokens and caches);
+   on the CPU (logits, greedy tokens and caches); then its smoke config
+   (head dim 32) in float32, ``generate`` card == CPU, and
+   ``python -m repro_torch.launch.serve --smoke`` on the card;
 8. serve: internlm2-1.8b at full width and depth in bfloat16, random
    weights from seed 0, through ``launch.serve.generate`` (batch 8,
    prompt 128, 32 generated tokens): finite logits, ``decode_attention``
@@ -73,7 +80,7 @@ ARCH = "internlm2-1.8b"
 # cache (B, H, G, D, S)
 DA_SWEEP = [(8, 8, 64, 512), (8, 2, 64, 700), (16, 1, 128, 1024),
             (4, 4, 256, 512), (12, 4, 64, 77), (16, 1, 64, 300),
-            (16, 8, 128, 4099)]
+            (16, 8, 128, 4099), (4, 2, 32, 400), (16, 1, 32, 1000)]
 DA_MAIN = (8, 16, 8, 128, 32_768)
 DA_SERVE = (8, 16, 8, 128, 160)      # the serve phase's cache at its end
 # rtol; atol is the same times min(1, max |o|) (see _da_close)
@@ -94,8 +101,10 @@ PER_ROUND = {
                               "segmented_age_topk": 1, "sparse_aggregate": 1},
     ("rage_k", "scan"): {"maghist_batch": 1, "threshold_topk_batch": 1,
                          "sparse_aggregate": 1},
-    ("rtop_k", "segmented"): {"maghist": 1, "sparse_aggregate": 1},
-    ("cafe", "segmented"): {"maghist": 1, "sparse_aggregate": 1},
+    ("rtop_k", "segmented"): {"maghist_batch": 1, "threshold_topk_batch": 1,
+                              "sparse_aggregate": 1},
+    ("cafe", "segmented"): {"maghist_batch": 1, "threshold_topk_batch": 1,
+                            "sparse_aggregate": 1},
     ("top_k", "segmented"): {"sparse_aggregate": 1},
     ("random_k", "segmented"): {"sparse_aggregate": 1},
     ("dense", "segmented"): {},
@@ -105,10 +114,18 @@ SPECIAL = [float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
 # the candidate report at (clients N, d, r): fig3, and the CIFAR CNN's
 # (benchmarks/fig5_cifar.py: r 2,500; paper_cifar_split: 6 clients)
 REPORT_SHAPES = [(10, 39_760, 75), (6, 2_515_338, 2500)]
+# past the report's shared sort (r > 8,192): an r of 20,000, and the CIFAR
+# row with r 10,000
+REPORT_LARGE = [(2, 200_000, 20_000), (1, 2_515_338, 10_000)]
 # segmented_age_topk at (C, S, r, k): fig3 before and after the first
 # recluster, and CIFAR's six clients before and after theirs
 SEG_SHAPES = [(10, 1, 75, 10), (5, 2, 75, 10), (6, 1, 2500, 100),
               (3, 2, 2500, 100)]
+# clusters past one block's shared memory: fig3's r and k from S 156, all
+# six CIFAR clients in one cluster; the hash in device memory; one member
+# past 8,192 lanes
+SEG_LARGE = [(1, 156, 75, 10), (1, 256, 75, 10), (1, 6, 2500, 100),
+             (2, 170, 120, 100), (1, 2, 10_000, 50)]
 
 
 def say(*parts):
@@ -222,7 +239,8 @@ def phase_kernels(torch, dev):
         plain_ms=device_ms(lambda: MH.hist_blocks(G)), bound_ms=b,
         bound_by=by,
         library_ms=device_ms(lambda: torch.bincount(
-            ids, minlength=n * nb * MH.NBINS))))
+            ids, minlength=n * nb * MH.NBINS)),
+        baselines_report=baselines_report_check(torch, dev, gen)))
 
     out.append(segmented_check(torch, dev, gen))
     out.append(sparse_aggregate_check(torch, dev, gen))
@@ -233,6 +251,55 @@ def phase_kernels(torch, dev):
             f"{k['bound_ms']:.6f} ms ({k['bound_by']}), max_abs_err "
             f"{k['max_abs_err']}")
     return out
+
+
+def baselines_report_check(torch, dev, gen):
+    """The baselines' report (``ops.threshold_topk``: on the card the
+    candidate report's two launches with its magnitudes, ``maghist``
+    never) against the same call on the CPU, vals and indices exactly, at
+    each ``REPORT_SHAPES`` on rows with the ``SPECIAL`` values and on the
+    ``report_rows``, and on one vector. Device times at each shape on
+    ``torch.randn`` rows beside its bound (one read of G, the report
+    written), its plain version (``report.threshold_topk_plain``: the
+    per-block histograms, the threshold in torch, a full-row stable sort)
+    and ``torch.topk(G.abs(), r)``. Returns the records."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import report as RP
+
+    want = {k: int(k in ("maghist_batch", "threshold_topk_batch"))
+            for k in build.LAUNCHES}
+
+    def check(G, r):
+        before = dict(build.LAUNCHES)
+        got = ops.threshold_topk(G, r)
+        rose = {k: build.LAUNCHES[k] - before[k] for k in before}
+        if rose != want:
+            raise AssertionError(f"the baselines' report launched {rose}")
+        for a, b in zip(got, ops.threshold_topk(G.cpu(), r)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"threshold_topk differs at "
+                                     f"{tuple(G.shape)}, r {r}")
+
+    recs = []
+    for n, d, r in REPORT_SHAPES:
+        check(grads(torch, n, d, gen, dev), r)
+        check(report_rows(torch, 7, d, gen, dev), r)
+        check(grads(torch, 1, d, gen, dev)[0], r)
+        G = torch.randn((n, d), generator=gen, device=dev)
+        b, by = bound(4 * n * d + 8 * n * r, n * d)
+        t = dict(n=n, d=d, r=r,
+                 ms=device_ms(lambda: ops.threshold_topk(G, r)),
+                 plain_ms=device_ms(lambda: RP.threshold_topk_plain(G, r)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=device_ms(lambda: torch.topk(G.abs(), r, dim=1)))
+        say(f"  threshold_topk (the baselines' report) N={n} d={d} r={r}: "
+            f"kernels {t['ms']:.4f} ms (2 launches), plain "
+            f"{t['plain_ms']:.4f}, torch.topk {t['library_ms']:.4f}, bound "
+            f"{b:.6f} ({by}); profiled: " + kernel_breakdown(
+                torch, lambda: ops.threshold_topk(G, r)))
+        recs.append(t)
+    return recs
 
 
 def report_rows(torch, n, d, gen, dev):
@@ -338,6 +405,26 @@ def report_check(torch, dev, gen):
             f"bound {hb:.6f} ({hby})")
         if not out:
             out = [hist, rec]
+    # past the shared sort: the gathered pairs sorted in device memory
+    large = []
+    for n, d, r in REPORT_LARGE:
+        check(grads(torch, n, d, gen, dev), r)
+        check(report_rows(torch, 2, d, gen, dev)[:n], r)
+        G = torch.randn((n, d), generator=gen, device=dev)
+        b, by = bound(4 * n * d + 4 * n * r, n * d)
+        t = dict(n=n, d=d, r=r,
+                 ms=device_ms(lambda: ops.threshold_topk_batch(G, r)),
+                 plain_ms=device_ms(
+                     lambda: RP.threshold_topk_batch_plain(G, r)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=device_ms(lambda: torch.topk(G.abs(), r, dim=1)))
+        say(f"  threshold_topk_batch past the shared sort N={n} d={d} r={r}: "
+            f"kernels {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
+            f"torch.topk {t['library_ms']:.4f}, bound {b:.6f} ({by}); "
+            f"profiled: " + kernel_breakdown(
+                torch, lambda: ops.threshold_topk_batch(G, r)))
+        large.append(t)
+    out[1]["large_r"] = large
     return out
 
 
@@ -398,6 +485,31 @@ def segmented_check(torch, dev, gen):
             f"{b:.7f} ({by})")
         if (C, S) == (5, 2):
             rec = t
+    # clusters past one block: ranked in device memory, then the walk;
+    # int32 and int64 candidates, a -1 candidate
+    large = []
+    for C, S, r, k in SEG_LARGE:
+        if ST.layout(S, r, k)["path"] != "global":
+            raise AssertionError(f"{(C, S, r, k)} takes one block")
+        cand, age, valid = inputs(C, S, r)
+        cand[:, -1, 0] = -1
+        for disjoint in (True, False):
+            check(cand, age, valid, k, disjoint)
+            check(cand.long(), age, valid, k, disjoint)
+        valid[:] = True
+        b, by = bound(4 * (2 * C * S * r + C * S + C * S * k), C * S * k * r)
+        t = dict(C=C, S=S, r=r, k=k,
+                 ms=device_ms(lambda: ST.segmented_age_topk(cand, age, valid,
+                                                            k)),
+                 plain_ms=device_ms(lambda: ST.segmented_age_topk_plain(
+                     cand, age, valid, k), reps=3, warmup=1),
+                 bound_ms=b, bound_by=by)
+        say(f"  segmented_age_topk past one block C={C} S={S} r={r} k={k}: "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound "
+            f"{b:.7f} ({by}); profiled: " + kernel_breakdown(
+                torch, lambda: ST.segmented_age_topk(cand, age, valid, k)))
+        large.append(t)
+    rec["large_s"] = large
     return rec
 
 
@@ -849,6 +961,55 @@ def phase_lm_parity(torch, dev):
         f"within 1e-5) in {time.perf_counter() - t0:.1f} s")
 
 
+def phase_smoke_serve(torch, dev):
+    """internlm2-1.8b's smoke config (head dim 32) in float32: ``generate``
+    (batch 4, prompt 16, 8 tokens) on the card and on the CPU from the same
+    CPU-drawn parameters and prompts, greedy tokens equal and logits
+    within rtol=atol=1e-4 (as the LM parity); ``decode_attention`` once
+    per layer per step and no other kernel. Then ``python -m
+    repro_torch.launch.serve --smoke`` without ``--device``, on the card,
+    must exit 0. Returns the in-process run's launch counts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(ARCH).replace(dtype="float32", remat=False)
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    B, P, GEN = 4, 16, 8
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1))
+    want = generate(cpu, cfg, prompts, GEN)
+    build.reset_launches()
+    got = generate(_tree_to(cpu, dev), cfg, prompts.to(dev), GEN)
+    launches = dict(build.LAUNCHES)
+    expect = {k: (cfg.n_layers * (P + GEN) if k == "decode_attention" else 0)
+              for k in launches}
+    if launches != expect:
+        raise AssertionError(f"smoke serve: kernel launches {launches}, "
+                             f"expected {expect}")
+    if not torch.equal(got.tokens.cpu(), want.tokens):
+        raise AssertionError("smoke serve: greedy tokens differ from the CPU")
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--smoke"], capture_output=True, text=True,
+                         timeout=300,
+                         env={**os.environ,
+                              "PYTHONPATH": os.path.join(ROOT, "src")})
+    if cli.returncode != 0:
+        raise AssertionError(f"serve --smoke failed:\n{cli.stderr[-2000:]}")
+    say(f"smoke serve: {cfg.name} smoke (d={cfg.d_model} H={cfg.n_heads} "
+        f"G={cfg.n_kv_heads} head dim {cfg.head_dim_}) float32, batch {B}, "
+        f"{P + GEN} steps: card == CPU (greedy tokens equal, max |logit "
+        f"diff| {float((got.logits.cpu() - want.logits).abs().max()):.3e}); "
+        f"launches {launches}; `serve --smoke` on the card in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + " | ".join(cli.stdout.strip().splitlines()))
+    return launches
+
+
 def phase_serve(torch, dev, profile: bool):
     """internlm2-1.8b at full width and depth, bfloat16, random weights
     from seed 0 on the card, served through ``launch.serve.generate``.
@@ -1080,13 +1241,14 @@ def main() -> int:
         phase_profile(torch, rtop, rtop_median_s)
     del eng, rtop
     phase_lm_parity(torch, dev)
+    smoke = phase_smoke_serve(torch, dev)
     serve = phase_serve(torch, dev, profile)
     torch.cuda.empty_cache()
     long = phase_long_decode(torch, dev)
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]]
-                            for run in (launches, base, serve, long))
+                            for run in (launches, base, smoke, serve, long))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,13 +56,11 @@ REPORT = [
      "  const unsigned long long T4 = stamp();\n"),
     ("  // 5. sort the gathered pairs",
      "  const unsigned long long T5 = stamp();\n"),
-    ("  for (int j = count + tid; j < r; j += kThreads)\n"
-     "    o[j] = __ldcg(ri + nan_base",
-     "  const unsigned long long T6 = stamp();\n"),
 ]
 REPORT_LEVEL = ("    shift = s;\n", "    shift = s;\n    ++levels;\n")
-REPORT_END = ("    o[j] = __ldcg(ri + nan_base + (j - count));\n}",
-              "    o[j] = __ldcg(ri + nan_base + (j - count));\n"
+REPORT_END = ("  nan_lanes(o, row_vals(), ri + nan_base, count, r);\n}",
+              "  const unsigned long long T6 = stamp();\n"
+              "  nan_lanes(o, row_vals(), ri + nan_base, count, r);\n"
               "  __syncthreads();\n"
               "  if (tid == 0 && row == 0) {\n"
               "    const unsigned long long T = stamp();\n"
@@ -79,10 +77,9 @@ SEG = [
      "  P[1] = stamp();\n"),
     ("  // 2. walk the members in order", "  P[2] = stamp();\n"),
 ]
-SEG_END = ("      for (int j = tid; j < k; j += nt) insert(tab, mask, sel[j]);\n"
-           "    __syncthreads();\n  }\n}",
-           "      for (int j = tid; j < k; j += nt) insert(tab, mask, sel[j]);\n"
-           "    __syncthreads();\n    if (s < 4) P[3 + s] = stamp();\n  }\n"
+SEG_END = ("        disjoint, tab, hash - 1, &found, warp_n);\n  }\n}",
+           "        disjoint, tab, hash - 1, &found, warp_n);\n"
+           "    if (s < 4) P[3 + s] = stamp();\n  }\n"
            "  if (tid == 0 && cl == 0)\n"
            "    for (int i = 0; i < 3 + (S < 4 ? S : 4); ++i) g_seg[i] = P[i];"
            "\n}")

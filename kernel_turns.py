@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the rAge-k round's report and selection kernels, and fig3 rAge-k
-rounds, for the port found under ``--src`` (default: this checkout), on
+"""Times the rAge-k round's report and selection kernels, the baselines'
+report, and fig3 rAge-k and rTop-k rounds, for the port found under
+``--src`` (default: this checkout), on
 one NVIDIA card. Run it for two trees in turns in one call (old, new,
 new, old) to compare them on the same card:
 
@@ -13,11 +14,14 @@ where ``build/parent`` holds another checkout (``git archive``). Prints:
   ``torch.randn`` rows: device ms, the kernels each call launches and
   their microseconds (``torch.profiler``), and ``torch.topk(G.abs(), r)``;
 - ``maghist_batch`` alone at both shapes;
+- the baselines' report (``ops.threshold_topk``, rTop-k's and CAFe's) at
+  both shapes on the same rows: device ms and the kernels it launches,
+  beside ``torch.topk(G.abs(), r)``;
 - ``segmented_age_topk`` at (C, S, r, k) = (10, 1, 75, 10), (5, 2, 75,
   10), (6, 1, 2500, 100) and (3, 2, 2500, 100), every slot valid;
-- 20 fig3 rAge-k rounds (median ms), then 10 more under
-  ``torch.profiler``: device busy ms, ``cudaLaunchKernel`` calls and the
-  ``local_phase`` and ``select`` spans per round.
+- 20 fig3 rAge-k rounds and 20 rTop-k rounds (median ms), each then 10
+  more under ``torch.profiler``: device busy ms, ``cudaLaunchKernel``
+  calls and the round's spans per round.
 
 Device times are ``chip_smoke.device_ms`` (median of 25 calls, each
 behind a sleep kernel). It exits 2 without a card.
@@ -106,6 +110,14 @@ def main() -> int:
             f"{lib:.4f} ms; maghist_batch alone {hist:.4f} ms; per call: "
             + CS.kernel_breakdown(torch,
                                   lambda: ops.threshold_topk_batch(G, r)))
+        for a, b in zip(ops.threshold_topk(G, r), ops.threshold_topk(G.cpu(),
+                                                                     r)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"threshold_topk differs at {(n, d, r)}")
+        ms = CS.device_ms(lambda: ops.threshold_topk(G, r))
+        say(f"{tag} baselines' report N={n} d={d} r={r}: {ms:.4f} ms, "
+            f"torch.topk {lib:.4f} ms; per call: " + CS.kernel_breakdown(
+                torch, lambda: ops.threshold_topk(G, r)))
     for C, S, r, k in CS.SEG_SHAPES:
         cand = torch.stack([torch.randperm(3 * r, generator=gen,
                                            device=dev)[:r]
@@ -122,19 +134,22 @@ def main() -> int:
         say(f"{tag} segmented_age_topk C={C} S={S} r={r} k={k}: {ms:.4f} ms")
     (x, y), test = mnist_like(n_train=60_000, n_test=2_000, seed=0)
     shards = paper_mnist_split(x, y, seed=0)
-    eng = FederatedEngine("mlp", shards, test, RAgeKConfig(**CS.FIG3),
-                          seed=0)
-    t_rounds = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        eng.step()
-        t_rounds.append(time.perf_counter() - t0)
-    if eng.cluster_of.tolist() != CS.PAIRS:
-        raise AssertionError(f"clusters {eng.cluster_of.tolist()}")
-    say(f"{tag} fig3 rage_k rounds 1-20: median "
-        f"{statistics.median(t_rounds) * 1e3:.2f} ms, clusters "
-        f"{eng.cluster_of.tolist()}")
-    say(f"{tag} fig3 rage_k rounds 21-30: " + profile_rounds(torch, eng))
+    for method in ("rage_k", "rtop_k"):
+        eng = FederatedEngine("mlp", shards, test,
+                              RAgeKConfig(**CS.FIG3, method=method), seed=0)
+        t_rounds = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            eng.step()
+            t_rounds.append(time.perf_counter() - t0)
+        want = CS.PAIRS if method == "rage_k" else list(range(eng.n))
+        if eng.cluster_of.tolist() != want:
+            raise AssertionError(f"{method} clusters {eng.cluster_of.tolist()}")
+        say(f"{tag} fig3 {method} rounds 1-20: median "
+            f"{statistics.median(t_rounds) * 1e3:.2f} ms, clusters "
+            f"{eng.cluster_of.tolist()}")
+        say(f"{tag} fig3 {method} rounds 21-30: "
+            + profile_rounds(torch, eng))
     return 0
 
 

@@ -30,15 +30,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+SMEM_LIMIT = 232_448   # an H100 block's shared memory (opt-in), bytes
+
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (every pointer and the stream are void*)
 SIGNATURES = {
     "decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
     "maghist": [P, P, I, I, P],
     "maghist_batch": [P, P, P, P, I, I, I, P],
-    "segmented_age_topk": [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    "segmented_age_topk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                           P],
     "sparse_aggregate": [P, P, P, P, P, I, I, P],
-    "threshold_topk_batch": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "threshold_topk_batch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                             P],
 }
 LAUNCHES = {name: 0 for name in SIGNATURES}
 

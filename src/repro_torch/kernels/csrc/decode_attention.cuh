@@ -27,13 +27,16 @@
 // SM) where those blocks fill the SMs or one tile holds the cache, else
 // 24 KB (96 positions, two blocks an SM, one block's barriers hidden
 // behind the other's work) for twice the splits of a short cache with
-// few (batch row, kv group) pairs. Per tile, three phases between
-// barriers:
-// (1) scores: eight lanes take one position (each lane 16-byte chunks
-//     of the row, neighbouring lanes on neighbouring chunks), a warp four
-//     positions at a time, the query rows in registers; a three-step
-//     reduction inside the eight lanes; each warp keeps each row's max
-//     over its positions;
+// few (batch row, kv group) pairs; the small one also where the large
+// one's scores overflow shared memory (D 32 in bfloat16 past 8 query rows a
+// kv head). Per tile, three phases between barriers:
+// (1) scores: a group of eight lanes takes one position (each lane
+//     16-byte chunks of the row, neighbouring lanes on neighbouring
+//     chunks), a warp four positions at a time, the query rows in
+//     registers; a three-step reduction inside the group; each warp keeps
+//     each row's max over its positions. A row of fewer than eight chunks
+//     (D 32 in bfloat16: four) takes a group of that many lanes, and a
+//     warp then scores more positions at a time;
 // (2) softmax: the row max over the warps' maxes folds into the running
 //     max (the TPU kernel's guards: m_safe = 0 while the max is -inf,
 //     alpha = 0 while the previous max is -inf); every warp exponentiates
@@ -54,8 +57,9 @@
 //
 // The kernel templates and the launcher live here; each head dim's
 // instantiations are compiled in a source of their own
-// (decode_attention_d64.cu, decode_attention.cu for D 128,
-// decode_attention_d256.cu), so the parallel nvcc runs overlap them.
+// (decode_attention_d32.cu, decode_attention_d64.cu, decode_attention.cu
+// for D 128, decode_attention_d256.cu), so the parallel nvcc runs overlap
+// them.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +74,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmallTile = 24576;
 constexpr int kLargeTile = 49152;
 constexpr int kStages = 2;          // tiles in the cp.async ring
-constexpr int kGroup = 8;           // lanes that score one position
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -135,6 +138,9 @@ struct Cfg {
   static constexpr int kTile = TB / (D * int(sizeof(T)));  // positions
   static constexpr int kEPC = 16 / int(sizeof(T));        // elements a chunk
   static constexpr int kRowChunks = D / kEPC;             // chunks a row
+  // lanes that score one position: 8, or a row's chunks where it has fewer
+  // (4 at D 32 in bfloat16), so that every lane holds at least one chunk
+  static constexpr int kGroup = kRowChunks < 8 ? kRowChunks : 8;
   static constexpr int kCPL = kRowChunks / kGroup;        // chunks a lane
   static constexpr int kGE = kCPL * kEPC;                 // elements a lane
   static constexpr int kUnroll = 32 / kGE > 0 ? (32 / kGE < 4 ? 32 / kGE : 4) : 1;
@@ -160,6 +166,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int chunk, float scale) {
   using C = Cfg<T, D, REP, TB>;
   constexpr int TS = C::kTile;
+  constexpr int kGroup = C::kGroup;
   extern __shared__ __align__(16) unsigned char smem[];
   T* kv_s = reinterpret_cast<T*>(smem);           // [kStages][K|V][TS][D]
   float* p_s = reinterpret_cast<float*>(smem + 2 * kStages * TB);
@@ -237,7 +244,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* m_prev_s = m_s + (t & 1) * REP;
     float* m_next_s = m_s + ((t + 1) & 1) * REP;
 
-    // (1) scores. Lane gl of a group holds chunks gl, gl + 8, ... of a row.
+    // (1) scores. Lane gl of a group holds chunks gl, gl + kGroup, ... of a
+    // row.
     for (int r0 = 0; r0 < rep; r0 += C::kRowBlock) {
       float qr[C::kRowBlock][C::kGE];
 #pragma unroll
@@ -471,6 +479,7 @@ cudaError_t by_tile(const Args& a) {
 }
 
 // one head dim's launcher for both dtypes, each defined in its own source
+cudaError_t launch_d32(bool bf16, const Args& a);
 cudaError_t launch_d64(bool bf16, const Args& a);
 cudaError_t launch_d128(bool bf16, const Args& a);
 cudaError_t launch_d256(bool bf16, const Args& a);

@@ -51,7 +51,8 @@
 //    digit that holds bin b's m-th largest key (the 8 bits below the fine
 //    bin, or below the sign bit in the two edge bins, whose values span
 //    many exponents); while A + (gathered values of bin b) still exceed the
-//    sort buffer (a power of two >= 1.5 r, at most 8,192 pairs), a pass
+//    sort buffer (a power of two >= 1.5 r, kept to 8,192 pairs while
+//    r <= 8,192: kernels/report.py::sort_cap_for), a pass
 //    over bin b's keys counts the next 8 bits inside the chosen range. If
 //    the range shrinks to one key held by too many lanes, the keys above it
 //    and then its first holders in buffer order, which is index order, are
@@ -63,12 +64,20 @@
 //    (bitonic.cuh: 8 keys a thread in registers) by the 64-bit key (|g|
 //    bits descending, index ascending), past 256 pairs as two runs of
 //    powers of two merged by rank; the first r indices are the report, then
-//    the NaN lanes.
+//    the NaN lanes. With a vals output the report also writes each index's
+//    |g| (its key's bits), and -1 at a NaN lane: the masked magnitudes of
+//    the baselines' report, ops.threshold_topk.
+// Past r = 8,192 the buffer (the power of two at or above 1.5 r) outgrows
+// shared memory. Then the last block gathers into a per-row buffer in
+// device memory, pads it and writes the NaN lanes, and the C entry sorts
+// the rows there (gsort.cuh: runs of 8,192 pairs in shared memory, then
+// merge passes) and writes the first r of each row (emit_kernel).
 #include <algorithm>
 #include <cstdint>
 
 #include "bitonic.cuh"
 #include "exponent_bins.cuh"
+#include "gsort.cuh"
 
 namespace {
 
@@ -92,6 +101,26 @@ __device__ __forceinline__ unsigned long long sort_key(unsigned key,
                                                        int idx) {
   return (static_cast<unsigned long long>(0x7FFFFFFFu - key) << 32) |
          static_cast<unsigned>(idx);
+}
+
+// A sort key's entry of the report: its index, and its |g| when vals is
+// given.
+__device__ __forceinline__ void emit_pair(int* o, float* v, int j,
+                                          unsigned long long key) {
+  o[j] = static_cast<int>(key & 0xFFFFFFFFull);
+  if (v != nullptr)
+    v[j] = __uint_as_float(0x7FFFFFFFu - static_cast<unsigned>(key >> 32));
+}
+
+// Entries count .. r - 1 of a report of fewer than r gathered pairs: the
+// NaN lanes in index order, at magnitude -1.
+__device__ __forceinline__ void nan_lanes(int* o, float* v,
+                                          const int* nan_idx, int count,
+                                          int r) {
+  for (int j = count + threadIdx.x; j < r; j += blockDim.x) {
+    o[j] = __ldcg(nan_idx + (j - count));
+    if (v != nullptr) v[j] = -1.0f;
+  }
 }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
@@ -178,11 +207,15 @@ __device__ void pick_top(const int* h, int n, int first, int need,
   }
 }
 
+// kGlobal: the gathered pairs go to device memory (sort_cap > kRun).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 4)
 report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
               int* __restrict__ ctr, int* __restrict__ dcounts,
               unsigned* __restrict__ skey, int* __restrict__ sidx,
-              int* __restrict__ out, int d, int chunk, int r, int sort_cap) {
+              int* __restrict__ out, float* __restrict__ vals,
+              unsigned long long* __restrict__ gbuf, int d, int chunk, int r,
+              int sort_cap) {
   extern __shared__ unsigned long long dyn[];   // the last block's sort
   __shared__ int rh[kSlots];
   __shared__ int warp_n[3][kWarps], warp_c[3][kWarps];
@@ -386,10 +419,16 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
   }
 
   // gather: every value above bin b, then bin b's values above the range,
-  // then those inside it (all, or their first holders when one key remains)
+  // then those inside it (all, or their first holders when one key
+  // remains), into shared memory or, past kRun pairs, the row's buffer in
+  // device memory
   unsigned long long* buf = dyn;
+  unsigned long long* gb = kGlobal ? gbuf + row * sort_cap : nullptr;
+  auto put = [&](int i, unsigned long long key) {
+    if constexpr (kGlobal) gb[i] = key; else buf[spad(i)] = key;
+  };
   for (int i = tid; i < above; i += kThreads)
-    buf[spad(i)] = sort_key(__ldcg(rk + i), __ldcg(ri + i));
+    put(i, sort_key(__ldcg(rk + i), __ldcg(ri + i)));
   if (tid == 0) {
     s_got = 0;
     s_eq = 0;
@@ -415,7 +454,7 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
 #pragma unroll
     for (int u = 0; u < kTailItems; ++u)
       if ((take >> u) & 1u)
-        buf[spad(pos++)] = sort_key(k[u], __ldcg(ti + i0 + u * kThreads + tid));
+        put(pos++, sort_key(k[u], __ldcg(ti + i0 + u * kThreads + tid)));
   }
   int count = r;
   __syncthreads();
@@ -431,12 +470,20 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
       int tot;
       const int o = block_rank(eq, warp_n[0], &tot);
       if (eq && have + o < q)
-        buf[spad(above + c_gt + have + o)] =
-            sort_key(prefix, __ldcg(ti + i));
+        put(above + c_gt + have + o, sort_key(prefix, __ldcg(ti + i)));
       __syncthreads();
       if (tid == 0) s_eq = have + tot;
       __syncthreads();
     }
+  }
+
+  // the row's magnitudes, when asked for: taken where they are written, so
+  // that no register holds them through the sort
+  auto row_vals = [&] { return vals == nullptr ? nullptr : vals + row * r; };
+  if constexpr (kGlobal) {   // pad the row's buffer; the C entry sorts it
+    for (int i = count + tid; i < sort_cap; i += kThreads) gb[i] = kPadKey;
+    nan_lanes(out + row * r, row_vals(), ri + nan_base, count, r);
+    return;
   }
 
   // 5. sort the gathered pairs; the first r are the report. Past 256 pairs
@@ -455,14 +502,16 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
     for (int i = count + tid; i < sp; i += kThreads) buf[spad(i)] = kPadKey;
     __syncthreads();
     bitonic::sort(buf, sp, sp);
+    float* ov = row_vals();
     for (int j = tid; j < min(r, count); j += kThreads)
-      o[j] = static_cast<int>(buf[spad(j)] & 0xFFFFFFFFull);
+      emit_pair(o, ov, j, buf[spad(j)]);
   } else {
     for (int i = count + tid; i < P + Q; i += kThreads)
       buf[spad(i)] = kPadKey;
     __syncthreads();
     bitonic::sort(buf, P, P);
     bitonic::sort(buf + spad(P), Q, Q);   // spad(P + j) = spad(P) + spad(j)
+    float* ov = row_vals();
     for (int i = tid; i < count; i += kThreads) {
       const unsigned long long key = buf[spad(i)];
       const bool first = i < P;
@@ -473,11 +522,25 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
         if (buf[spad(mid)] < key) lo = mid + 1; else hi = mid;
       }
       const int pos = own + lo - base;
-      if (pos < r) o[pos] = static_cast<int>(key & 0xFFFFFFFFull);
+      if (pos < r) emit_pair(o, ov, pos, key);
     }
   }
-  for (int j = count + tid; j < r; j += kThreads)
-    o[j] = __ldcg(ri + nan_base + (j - count));
+  nan_lanes(o, row_vals(), ri + nan_base, count, r);
+}
+
+// Past kRun pairs: one block a row writes the first r of its sorted buffer;
+// the pads (count < r) leave the NaN lanes that the last block wrote.
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(const unsigned long long* __restrict__ sorted,
+            int* __restrict__ out, float* __restrict__ vals, int r,
+            int sort_cap) {
+  const long long row = blockIdx.x;
+  const unsigned long long* s = sorted + row * sort_cap;
+  float* ov = vals == nullptr ? nullptr : vals + row * r;
+  for (int j = threadIdx.x; j < r; j += kThreads) {
+    const unsigned long long key = s[j];
+    if (key != kPadKey) emit_pair(out + row * r, ov, j, key);
+  }
 }
 
 }  // namespace
@@ -485,29 +548,50 @@ report_kernel(const float* __restrict__ g, const int* __restrict__ counts,
 // g: (n, d) float32; counts: (n, ceil(d / chunk), 257) int32 and ctr: (n,)
 // int32 zeroed, both from maghist_batch on the same stream; dcounts: (n,
 // ceil(d / chunk), 256) int32, skey, sidx: (n, d) int32 scratch; out: (n,
-// r) int32. Needs 1 <= r <= d, r <= 8192, a power-of-two sort_cap in
-// [r, 8192], chunk a multiple of 4096 with ceil(d / chunk) <= 64.
+// r) int32; vals: (n, r) float32 or null. Needs 1 <= r <= d, a power-of-two
+// sort_cap >= r, chunk a multiple of 4096 with ceil(d / chunk) <= 64. Past
+// sort_cap 8192, gbuf and gtmp: (n, sort_cap) 64-bit scratch each (else
+// null).
 extern "C" int threshold_topk_batch(const void* g, const void* counts,
                                     void* ctr, void* dcounts, void* skey,
-                                    void* sidx, void* out, int n, int d,
+                                    void* sidx, void* out, void* vals,
+                                    void* gbuf, void* gtmp, int n, int d,
                                     int chunk, int r, int sort_cap,
                                     void* stream) {
+  const bool global = sort_cap > gsort::kRun;
+  if (global && (gbuf == nullptr || gtmp == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && d > 0) {
     const int parts = (d + chunk - 1) / chunk;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const size_t smem =
-        sizeof(unsigned long long) * (sort_cap + sort_cap / 16);
+        global ? 0 : sizeof(unsigned long long) * (sort_cap + sort_cap / 16);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          report_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          report_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    report_kernel<<<dim3(parts, n), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+    auto* gb = static_cast<unsigned long long*>(gbuf);
+    auto kern = global ? report_kernel<true> : report_kernel<false>;
+    kern<<<dim3(parts, n), kThreads, smem, st>>>(
         static_cast<const float*>(g), static_cast<const int*>(counts),
         static_cast<int*>(ctr), static_cast<int*>(dcounts),
         static_cast<unsigned*>(skey), static_cast<int*>(sidx),
-        static_cast<int*>(out), d, chunk, r, sort_cap);
+        static_cast<int*>(out), static_cast<float*>(vals), gb, d, chunk, r,
+        sort_cap);
+    if (global) {
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      unsigned long long* sorted = nullptr;
+      err = gsort::sort_segments(
+          gb, static_cast<unsigned long long*>(gtmp),
+          static_cast<long long>(n) * sort_cap, sort_cap, st, &sorted);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      emit_kernel<<<n, kThreads, 0, st>>>(sorted, static_cast<int*>(out),
+                                          static_cast<float*>(vals), r,
+                                          sort_cap);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,9 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 
-HEAD_DIMS = (64, 128, 256)     # the kernel's head dims (template parameter)
+HEAD_DIMS = (32, 64, 128, 256)  # the kernel's head dims (template parameter)
 MAX_REP = 16                   # query heads per kv head the kernel takes
 # csrc/decode_attention.cuh's kSmallTile and kLargeTile: bytes of K (and
 # of V) in a tile, with which the partial kernel fits two blocks on an SM,
@@ -33,6 +34,7 @@ MAX_REP = 16                   # query heads per kv head the kernel takes
 SMALL_TILE = 24576
 LARGE_TILE = 49152
 BLOCKS_PER_SM = {SMALL_TILE: 2, LARGE_TILE: 1}
+WARPS = 8                      # the partial kernel's 256 threads
 # the latest launch's tile_bytes, splits and chunk (positions a split)
 LAST_CUT: dict = {}
 
@@ -45,6 +47,17 @@ def tile_positions(D: int, itemsize: int,
                    tile_bytes: int = SMALL_TILE) -> int:
     """Cache positions in one tile of ``tile_bytes``."""
     return tile_bytes // (D * itemsize)
+
+
+def smem_bytes(D: int, itemsize: int, rep: int, tile_bytes: int) -> int:
+    """The partial kernel's shared memory (``Cfg::kSmem``): two stages of
+    K and V tiles, then float32 scores, queries, warp maxes and sums and
+    the running state, for the power of two at or above ``rep``."""
+    REP = 1 << max(0, rep - 1).bit_length()
+    wpr = WARPS // REP if REP < WARPS else 1
+    tile = tile_positions(D, itemsize, tile_bytes)
+    return 4 * tile_bytes + 4 * (REP * tile + REP * D + WARPS * REP
+                                 + REP * wpr + 4 * REP)
 
 
 def split_chunk(n: int, splits: int, tile: int) -> int:
@@ -63,14 +76,18 @@ def _cut(blocks: int, n: int, tile: int, slots: int):
     return max(1, -(-n // chunk)), chunk
 
 
-def choose_splits(blocks: int, n: int, D: int, itemsize: int, sms: int):
+def choose_splits(blocks: int, n: int, D: int, itemsize: int, sms: int,
+                  rep: int = 1):
     """(tile_bytes, splits, chunk) for ``blocks`` = B * G over n positions.
     The large tile, one block an SM, where one tile holds the cache (one
     split, no combine) or its blocks fill the ``sms``; else the small
-    tile, two blocks an SM, for up to twice the splits."""
+    tile, two blocks an SM, for up to twice the splits. The small tile
+    also wherever the large one's scores of ``rep`` query rows overflow
+    shared memory (D 32 in bfloat16 past 8 rows)."""
     large = tile_positions(D, itemsize, LARGE_TILE)
     tiles = -(-n // large)
-    if tiles <= 1 or blocks * tiles >= sms:
+    fits = smem_bytes(D, itemsize, rep, LARGE_TILE) <= SMEM_LIMIT
+    if fits and (tiles <= 1 or blocks * tiles >= sms):
         return (LARGE_TILE, *_cut(blocks, n, large, sms))
     return (SMALL_TILE, *_cut(blocks, n, tile_positions(D, itemsize),
                               sms * BLOCKS_PER_SM[SMALL_TILE]))
@@ -179,9 +196,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H / G <= ``MAX_REP``; the cache cut by :func:`choose_splits`."""
     q, n = _checked(q, k, v, cache_len)
     B, H, D = q.shape
+    G = k.shape[2]
     return _launch(q, k, v, n, *choose_splits(
-        B * k.shape[2], n, D, q.element_size(),
-        _sm_count(q.device.index or 0)))
+        B * G, n, D, q.element_size(), _sm_count(q.device.index or 0),
+        H // G))
 
 
 def _decode_attention_splits(q, k, v, cache_len, splits: int):

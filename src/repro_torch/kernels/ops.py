@@ -65,15 +65,21 @@ def maghist(g: torch.Tensor) -> torch.Tensor:
 
 
 def threshold_topk(g: torch.Tensor, r: int):
-    """Two-pass top-r of one vector (d,), or of each row of (N, d): the
-    per-block histograms (``maghist``) give tau, then the stable top-r of
-    the candidates {|g| >= tau}. Returns (vals, idx int32) shaped like
+    """Two-pass top-r of one vector (d,), or of each row of (N, d): a
+    magnitude histogram gives tau, then the stable top-r of the candidates
+    {|g| >= tau}. Returns (vals, idx int32) shaped like
     ``lax.top_k(|g|, r)``; vals are the masked magnitudes (non-candidates
     read -1). The result is the stable top-r of where(isnan, -1, |g|):
-    NaN is never a candidate."""
+    NaN is never a candidate, and any tau at or below the r-th largest
+    magnitude gives it. On the card that is the candidate report's two
+    launches (``kernels/report.py``, with its vals output); on the CPU its
+    plain version (``report.threshold_topk_plain``: the per-block
+    histograms and a stable sort of the masked rows)."""
     rows = g.reshape(-1, g.shape[-1])
-    tau = MH.threshold_from_hist(maghist(rows), r)
-    vals, idx = RP.masked_topr(rows.to(torch.float32).abs(), tau, r)
+    if _on_card("threshold_topk", rows):
+        vals, idx = RP.threshold_topk_batch(rows, r, vals=True)
+    else:
+        vals, idx = RP.threshold_topk_plain(rows, r)
     shape = (*g.shape[:-1], r)
     return vals.reshape(shape), idx.to(torch.int32).reshape(shape)
 

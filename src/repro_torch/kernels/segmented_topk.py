@@ -11,7 +11,9 @@ first; a member's picks enter the cluster's taken buffer only when its
 ``valid`` slot is set. Ages are non-negative (the contract).
 
 :func:`segmented_age_topk` launches the CUDA kernel
-(``csrc/segmented_topk.cu``); :func:`segmented_age_topk_plain` is its
+(``csrc/segmented_topk.cu``): one block per cluster where its shared
+memory holds the cluster, else the same steps from device memory
+(:func:`layout` decides from the shape); :func:`segmented_age_topk_plain` is its
 plain PyTorch version; :func:`segmented_age_topk_ranked` repeats the
 kernel's steps (rank every member's lanes at once, then walk the members
 in order) in plain PyTorch, for the CPU tests.
@@ -21,9 +23,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 
 NEG = -(2 ** 31) + 1              # a picked lane's age: never picked again
-SMEM_LIMIT = 232_448              # an H100 block's shared memory (opt-in)
+STATIC_SMEM = 1024                # the walk's own shared variables, rounded up
 
 
 def _pow2(x: int) -> int:
@@ -33,14 +36,23 @@ def _pow2(x: int) -> int:
 def layout(S: int, r: int, k: int) -> dict:
     """The kernel's launch for one cluster of S members of r lanes: each
     member's lanes padded to a power of two (``rp``), the taken set's hash
-    slots (a power of two >= 2*S*k), the block's threads and its shared
-    memory in bytes (ranked 64-bit keys with one pad slot after every 16,
-    candidates, hash, picks)."""
+    slots (a power of two >= 2*S*k), and ``path``: "block" while one
+    block's shared memory holds the cluster (ranked 64-bit keys with one
+    pad slot after every 16, candidates, hash), else "global" (the
+    ranked keys in device memory, and the hash in shared memory while it
+    fits, ``hash_smem``). ``threads`` and ``smem`` (bytes) are those of the
+    block that walks the members."""
     rp = _pow2(r)
     hash_ = max(32, _pow2(2 * S * k))
-    threads = min(1024, max(32, _pow2(S * rp // 8), _pow2(min(r, 1024))))
-    smem = 8 * (S * rp + S * rp // 16) + 4 * (S * r + hash_ + k)
-    return dict(rp=rp, hash=hash_, threads=threads, smem=smem)
+    smem = 8 * (S * rp + S * rp // 16) + 4 * (S * r + hash_)
+    if smem <= SMEM_LIMIT:
+        threads = min(1024, max(32, _pow2(S * rp // 8), _pow2(min(r, 1024))))
+        return dict(rp=rp, hash=hash_, threads=threads, smem=smem,
+                    path="block", hash_smem=True)
+    hash_smem = 4 * hash_ <= SMEM_LIMIT - STATIC_SMEM
+    return dict(rp=rp, hash=hash_, threads=min(1024, max(32, _pow2(min(
+        r, 1024)))), smem=4 * hash_ if hash_smem else 0, path="global",
+        hash_smem=hash_smem)
 
 
 def segmented_age_topk_plain(cand: torch.Tensor, cand_age: torch.Tensor,
@@ -90,15 +102,22 @@ def segmented_age_topk(cand: torch.Tensor, cand_age: torch.Tensor,
     cand_age = cand_age.to(torch.int32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     lay = layout(S, r, k)
-    if lay["smem"] > SMEM_LIMIT:
-        raise ValueError(f"segmented_age_topk: r={r}, S={S}, k={k} need "
-                         f"{lay['smem']} B of shared memory (> {SMEM_LIMIT})")
     build.require_cuda("segmented_age_topk", cand, cand_age, valid)
-    out = torch.empty((C, S, k), dtype=torch.int32, device=cand.device)
+    dev = cand.device
+    out = torch.empty((C, S, k), dtype=torch.int32, device=dev)
+    keys = tab = None
+    if lay["path"] == "global":
+        keys = torch.empty((2, C * S * lay["rp"]), dtype=torch.int64,
+                           device=dev)
+        if not lay["hash_smem"]:
+            tab = torch.empty((C, lay["hash"]), dtype=torch.int32, device=dev)
     build.call("segmented_age_topk", cand.data_ptr(), cand_age.data_ptr(),
-               valid.data_ptr(), out.data_ptr(), C, S, r, k, int(disjoint),
-               int(cand.dtype == torch.int64), lay["rp"], lay["hash"],
-               lay["threads"])
+               valid.data_ptr(), out.data_ptr(),
+               None if keys is None else keys[0].data_ptr(),
+               None if keys is None else keys[1].data_ptr(),
+               None if tab is None else tab.data_ptr(), C, S, r, k,
+               int(disjoint), int(cand.dtype == torch.int64), lay["rp"],
+               lay["hash"], lay["threads"])
     return out
 
 

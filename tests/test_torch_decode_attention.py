@@ -22,10 +22,15 @@ is held to covering every position once and to the tile the card's
 times chose at internlm2's shapes.
 
 The tests marked ``cuda`` hold the CUDA kernel against its plain version
-on the card and skip where there is none. They need no JAX, so the file
+on the card, and run the smoke serve (head dim 32) there, and skip where
+there is none. They need no JAX, so the file
 also runs on a machine with a card and no JAX (the comparisons with the
 JAX package then skip).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -42,8 +47,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 
+# the reference sweep of tests/test_kernels.py, then head dim 32 at the
+# smoke configurations' H 4, G 2
 SWEEP = [(8, 8, 64, 512), (8, 2, 64, 700), (16, 1, 128, 1024),
-         (4, 4, 256, 512)]
+         (4, 4, 256, 512), (4, 2, 32, 400)]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
@@ -148,7 +155,8 @@ def test_split_plain_matches_model_layer(jax_ref, dtype, tol, splits):
                                    rtol=tol)
 
 
-@pytest.mark.parametrize("D,itemsize", [(64, 2), (128, 2), (256, 4)])
+@pytest.mark.parametrize("D,itemsize", [(64, 2), (128, 2), (256, 4),
+                                        (32, 2), (32, 4)])
 def test_choose_splits_cuts_every_position_once(D, itemsize):
     """Every valid position lies in exactly one split, there is at least
     one split, none is empty, and only the last is shorter than a tile;
@@ -181,6 +189,24 @@ def test_choose_splits_takes_the_tile_that_won_on_the_card(blocks, n, want):
     one tile holds the cache, the small one for a short cache with few
     (batch row, kv group) pairs, as the H100's times chose (PERF.md)."""
     assert DA.choose_splits(blocks, n, 128, 2, 132) == want
+
+
+def test_choose_splits_keeps_the_tile_inside_shared_memory():
+    """The large tile's float32 scores grow with its positions: at D 32 in
+    bfloat16 (768 positions) they overflow a block's shared memory past 8
+    query rows, so the host takes the small tile there, whatever the
+    cache; every other head dim and dtype fits both tiles at any rep."""
+    for D in DA.HEAD_DIMS:
+        for itemsize in (2, 4):
+            for rep in (1, 2, 3, 4, 8, 9, 16):
+                fits = all(DA.smem_bytes(D, itemsize, rep, t) <= DA.SMEM_LIMIT
+                           for t in (DA.SMALL_TILE, DA.LARGE_TILE))
+                assert fits == (D != 32 or itemsize != 2 or rep <= 8)
+                assert DA.smem_bytes(D, itemsize, rep,
+                                     DA.SMALL_TILE) <= DA.SMEM_LIMIT
+    for n in (1, 160, 32_768):
+        assert DA.choose_splits(64, n, 32, 2, 132, 16)[0] == DA.SMALL_TILE
+    assert DA.choose_splits(64, 32_768, 32, 2, 132, 8)[0] == DA.LARGE_TILE
 
 
 def test_split_chunk_leaves_empty_splits_past_a_short_cache():
@@ -228,7 +254,9 @@ def cuda():
 @pytest.mark.parametrize("H,G,D,S", SWEEP + [(16, 8, 128, 4099),
                                              (12, 4, 64, 77),
                                              (16, 1, 64, 300),
-                                             (16, 8, 128, 8192)])
+                                             (16, 8, 128, 8192),
+                                             (16, 1, 32, 1000),
+                                             (8, 8, 32, 4099)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])
@@ -269,3 +297,47 @@ def test_kernel_splits_match_split_plain(cuda, dtype, splits):
                                                             splits))
         if clen == 0:
             assert not got.any()
+
+
+@pytest.mark.cuda
+def test_serve_smoke_runs_on_the_card(cuda):
+    """``launch.serve --smoke`` (head dim 32) without ``--device``: the
+    card, through the kernel."""
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr
+    assert "generated token ids (first row): " in out.stdout
+
+
+@pytest.mark.cuda
+def test_smoke_generate_on_the_card_equals_the_cpu(cuda):
+    """internlm2's smoke config in float32 from the same CPU-drawn
+    parameters and prompts: ``generate`` on the card (decode_attention at
+    D 32, once per layer per step) gives the CPU's greedy tokens, logits
+    within 1e-4 (cuBLAS and the CPU's BLAS sum in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config("internlm2-1.8b").replace(dtype="float32",
+                                                     remat=False)
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16),
+                            generator=torch.Generator().manual_seed(1))
+    want = serve.generate(params, cfg, prompts, 8)
+    before = build.LAUNCHES["decode_attention"]
+    got = serve.generate(to(params), cfg, prompts.to(cuda), 8)
+    assert build.LAUNCHES["decode_attention"] == before + cfg.n_layers * 24
+    assert got.finite
+    np.testing.assert_array_equal(got.tokens.cpu().numpy(),
+                                  want.tokens.numpy())
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
