@@ -32,6 +32,19 @@ the last line:
    ``maghist`` never; clusters stay singletons), then 5 rounds each of
    CAFe, top-k, random-k, dense and rAge-k scan, each round checked
    against its method's kernel launches;
+6a. cifar parity: one fig5 round, ``FederatedEngine("cnn")`` on the
+   full Network-2 (d = 2,515,338, 6 clients of ``paper_cifar_split``, r
+   2,500, k 100) at batch 32 and H 1, on the card against the CPU from
+   the same params, BatchNorm state and batches, for rAge-k (segmented
+   and scan) and rTop-k;
+6b. cifar slice: ``cifar10_like`` 50,000/10,000 at fig5's
+   hyper-parameters (batch 256, Adam lr 1e-4): the rAge-k round twice
+   from the same inputs (bitwise equal or not, reported), 2 rounds at
+   the paper's H 100, then 20 rAge-k rounds at H 10 and M 10 (two
+   reclusters; the labels after each), the three kernels on one more
+   round's real gradients, 4 rounds whose recluster (eps 1.0) joins all
+   six clients in one cluster, and 10 rTop-k rounds at H 10, every round
+   against its method's kernel launches;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -53,7 +66,8 @@ after; the kernels' JSON record sums them over the paths.
 ``--profile`` adds ten more rounds of the rAge-k slice and of the rTop-k
 run under ``torch.profiler`` (host and device time per span of the
 round, the device's idle share, the top kernels; tables and traces in
-``build/profile/``), and eight more decode steps of the serve phase.
+``build/profile/``), three more CIFAR rAge-k rounds at H 10 after the
+slice's two reclusters, and eight more decode steps of the serve phase.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -109,6 +123,15 @@ PER_ROUND = {
     ("random_k", "segmented"): {"sparse_aggregate": 1},
     ("dense", "segmented"): {},
 }
+# fig5 (benchmarks/fig5_cifar.py with BENCH_FULL=1): Network-2, the 6
+# clients of paper_cifar_split, r 2,500, k 100, H 100, M 200, batch 256,
+# Adam lr 1e-4, 1,400 rounds
+FIG5 = dict(r=2500, k=100, H=100, M=200, lr=1e-4, batch_size=256)
+# the CIFAR slice's cuts: H 100 -> 10 and M 200 -> 10 for its 20 rAge-k
+# and 10 rTop-k rounds (1,400 -> 20 rounds); 2 rounds keep the paper's H
+FIG5_CUT = dict(H=10, M=10)
+# the card-against-CPU round: a batch and H that the CPU runs in seconds
+FIG5_PARITY = dict(H=1, batch_size=32)
 SPECIAL = [float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
            -3e-39, 2.0 ** -45, 2.0 ** -40, 2.0 ** -39, 3e38, 1.0, 2.0 ** 24]
 # the candidate report at (clients N, d, r): fig3, and the CIFAR CNN's
@@ -767,22 +790,27 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
     # annotation ranges, not work
     kern = [e for e in ka
             if e.device_type == DeviceType.CUDA and e.key not in SPANS]
-    busy = sum(dev_us(e) for e in kern) / rounds / 1e3
+    total = sum(dev_us(e) for e in kern) / rounds / 1e3
+    busy = busy_union_us(prof) / rounds / 1e3
     wall = wall_us / rounds / 1e3
     med = median_round_s * 1e3
-    method = eng.hp.method
+    method = f"{eng.kind}_{eng.hp.method}"
     say(f"profile {method}: {rounds} rounds, {wall:.3f} ms per round with "
         f"the profiler on; device busy {busy:.3f} ms per round = "
         f"{100 * busy / wall:.1f}% of that (idle {100 - 100 * busy / wall:.1f}"
         f"%), {100 * busy / med:.1f}% of the unprofiled median round "
-        f"{med:.2f} ms")
+        f"{med:.2f} ms; device rows' time summed {total:.3f} ms (above the "
+        f"busy time where streams overlap)")
     for span in SPANS:
         e = next((e for e in ka if e.key == span
                   and e.device_type != DeviceType.CUDA), None)
         if e is not None:
             say(f"  span {span}: host {e.cpu_time_total / rounds / 1e3:.3f}"
                 f" ms/round, device {dev_us(e, True) / rounds / 1e3:.3f} "
-                f"ms/round")
+                f"ms/round (the kernels its launches name)")
+    H = eng.hp.H
+    say(f"  per local step (H {H}): {med / H:.3f} ms of the unprofiled "
+        f"median round, device busy {busy / H:.3f} ms of the profiled one")
     for e in sorted(kern, key=dev_us, reverse=True)[:8]:
         say(f"  device {dev_us(e) / rounds:8.2f} us/round x"
             f"{e.count / rounds:5.1f}  {e.key[:80]}")
@@ -798,6 +826,353 @@ def phase_profile(torch, eng, median_round_s: float, rounds: int = 10):
         f.write(ka.table(sort_by="self_cpu_time_total", row_limit=60))
     prof.export_chrome_trace(os.path.join(out,
                                           f"profile_trace_{method}.json"))
+
+
+def busy_union_us(prof) -> float:
+    """Microseconds in which some kernel, copy or memset ran on the
+    device: the union of the device events' intervals (a sum counts the
+    overlap of two streams twice)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in SPANS)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _groups_matched(labels) -> str:
+    """fig5's count of label pairs clustered together, and whether the
+    three groups are apart."""
+    pairs = sum(labels[a] == labels[a + 1] for a in (0, 2, 4))
+    apart = len({labels[0], labels[2], labels[4]}) == 3
+    return (f"{pairs}/3 label groups together, "
+            f"{'apart' if apart else 'not apart'}")
+
+
+def phase_cifar_parity(torch, dev, shards, test):
+    """One fig5 round of the full Network-2 (N 6, r 2,500, k 100; batch 32,
+    H 1) on the card and on the CPU from the same params, BatchNorm state
+    and batches, for rAge-k (segmented and scan) and rTop-k. Floats
+    (losses, G, g_sum, the new global params, the BatchNorm state) within
+    rtol=1e-4, atol=1e-6, as the fig3 parity (cuDNN and the CPU sum the
+    float32 products in other orders; TF32 off); indices, ages and
+    request counts exactly; the card's report of its G equal to the CPU's
+    report of that same G. rTop-k draws from each device's generator, so
+    there each pick must lie inside its own report and g_sum and the
+    params are not compared; the two reports, each of its own device's
+    G, must hold the same set wherever the smallest gap in |G| at the
+    r-th place exceeds twice the largest |G| difference (their order
+    inside swaps at near ties). Each comparison's largest difference is
+    printed before it is checked, with the margin of the card's report:
+    the smallest gap in |G| at the r-th and k-th place of a row."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core.strategies import topr_candidates
+    from repro_torch.fl import client as C
+    from repro_torch.fl.engine import FederatedEngine
+
+    tol = dict(rtol=1e-4, atol=1e-6)
+    for method, selection in (("rage_k", "segmented"), ("rage_k", "scan"),
+                              ("rtop_k", "segmented")):
+        hp = RAgeKConfig(**{**FIG5, **FIG5_PARITY}, method=method)
+        card, cpu = (FederatedEngine("cnn", shards, test, hp, seed=0,
+                                     device=where, selection=selection)
+                     for where in (dev, "cpu"))
+        bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
+        t0 = time.perf_counter()
+        mc = card._round_impl(bx, by)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mh = cpu._round_impl(bx.cpu(), by.cpu())
+        t_cpu = time.perf_counter() - t0
+        name = f"cnn {method}/{selection}"
+        floats = {"losses": (mc["losses"], mh["losses"]),
+                  "G": (mc["G"], mh["G"])}
+        if method != "rtop_k":
+            floats.update(g_sum=(mc["g_sum"], mh["g_sum"]),
+                          params=(card.g_params, cpu.g_params))
+        for i, (a, b) in enumerate(zip(C.tree_leaves(card.state_s),
+                                       C.tree_leaves(cpu.state_s))):
+            floats[f"bn{i // 2}.{('mean', 'var')[i % 2]}"] = (a, b)
+        errs = {k: float((a.cpu() - b).abs().max())
+                for k, (a, b) in floats.items()}
+        mag = mc["G"].abs().sort(dim=1, descending=True).values
+        gap_r = float((mag[:, hp.r - 1] - mag[:, hp.r]).min())
+        gap_k = float((mag[:, hp.k - 1] - mag[:, hp.k]).min())
+        say(f"cifar parity: one {name} round (batch {hp.batch_size}, H "
+            f"{hp.H}): card {t_card:.2f} s, CPU {t_cpu:.2f} s; max |diff| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; the card's report margin: smallest |G| gap at place r "
+            f"{gap_r:.3e}, at place k {gap_k:.3e}")
+        for k, (a, b) in floats.items():
+            torch.testing.assert_close(a.cpu(), b, **tol,
+                                       msg=lambda m: f"{name} {k}: {m}")
+        # the integers from one G: the card's report kernels on the card's
+        # G against the CPU's plain report of the same G
+        if not torch.equal(topr_candidates(mc["G"], hp.r, "threshold").cpu(),
+                           topr_candidates(mc["G"].cpu(), hp.r, "threshold")):
+            raise AssertionError(f"{name}: the card's report of its G differs "
+                                 f"from the CPU's report of the same G")
+        if method == "rtop_k":
+            reports = [topr_candidates(m["G"], hp.r, hp.candidates).cpu()
+                       for m in (mc, mh)]
+            same_set = torch.equal(*(r.sort(1).values for r in reports))
+            say(f"cifar parity: {name}: the two devices' reports of their "
+                f"own G: sets equal {same_set}, "
+                f"{int((reports[0] != reports[1]).sum())} of "
+                f"{reports[0].numel()} places differ in order (near ties "
+                f"inside the report swap where |G| moves by {errs['G']:.1e})")
+            # the sets must agree wherever the float differences cannot
+            # cross the r-th place
+            if not same_set and gap_r > 2 * errs["G"]:
+                raise AssertionError(f"{name}: candidate report sets differ")
+            for m, rep in zip((mc, mh), reports):
+                if not (m["idx"].cpu().unsqueeze(-1)
+                        == rep.unsqueeze(1)).any(-1).all():
+                    raise AssertionError(f"{name}: a pick outside the report")
+        elif not torch.equal(mc["idx"].cpu(), mh["idx"]):
+            raise AssertionError(f"{name}: requested indices differ")
+        if not (torch.equal(card.age.cluster_age.cpu(), cpu.age.cluster_age)
+                and torch.equal(card.age.freq.cpu(), cpu.age.freq)):
+            raise AssertionError(f"{name}: ages or request counts differ")
+        say(f"cifar parity: {name}: card == CPU (the report of one G "
+            f"exact; "
+            + ("every pick inside its report"
+               if method == "rtop_k" else "indices, ages, counts exact")
+            + f"; floats within rtol {tol['rtol']}, atol {tol['atol']})")
+
+
+def cifar_repeat(torch, dev, shards, test):
+    """The CIFAR slice's rAge-k round (batch 256, H 10) twice on the card
+    from the same params and batches: whether G and the new global params
+    are bitwise equal (cuDNN's weight-gradient algorithms may add with
+    atomics). Printed, not gated."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    hp = RAgeKConfig(**{**FIG5, **FIG5_CUT})
+    out = []
+    bx = by = None
+    for _ in range(2):
+        eng = FederatedEngine("cnn", shards, test, hp, seed=0)
+        if bx is None:
+            bx, by, _ = eng._store.draw(eng._data, eng.samp, hp.H)
+        m = eng._round_impl(bx, by)
+        out.append((m["G"], eng.g_params, m["idx"]))
+        del eng
+    (g1, p1, i1), (g2, p2, i2) = out
+    say(f"cifar repeat: the rAge-k round (batch {hp.batch_size}, H {hp.H}) "
+        f"twice from the same inputs: G bitwise equal {torch.equal(g1, g2)} "
+        f"(max |diff| {float((g1 - g2).abs().max()):.3e}), new params "
+        f"bitwise equal {torch.equal(p1, p2)} (max |diff| "
+        f"{float((p1 - p2).abs().max()):.3e}), picks equal "
+        f"{torch.equal(i1, i2)}")
+
+
+def cifar_real_times(torch, eng):
+    """The slice's kernels on real gradients: ``eng``'s local phase on one
+    more draw (the engine left as it was) gives G (6, 2,515,338) and its
+    report; each kernel equal to its plain version there, then device
+    times beside the bound and the library call: the report and
+    ``maghist_batch`` alone; ``segmented_age_topk`` on those reports with
+    the engine's cluster ages at (C, S) = (6, 1), (3, 2) and (1, 6); and
+    ``sparse_aggregate`` of the (1, 6) picks' 600 uploads. Returns the
+    records by kernel name."""
+    from repro_torch.device import strict_fp32
+    from repro_torch.kernels import maghist as MH
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import report as RP
+    from repro_torch.kernels import segmented_topk as ST
+    from repro_torch.kernels import sparse_aggregate as SA
+
+    hp = eng.hp
+    r, k = hp.r, hp.k
+    bx, by, _ = eng._store.draw(eng._data, eng.samp, hp.H)
+    with strict_fp32():
+        G, cands = eng._local_phase(eng.params_s, eng.opt_s, eng.state_s,
+                                    bx, by)[3:5]
+    n, d = G.shape
+    rep = ops.threshold_topk_batch(G, r)
+    if not (torch.equal(rep, cands)
+            and torch.equal(rep, RP.threshold_topk_batch_plain(G, r))):
+        raise AssertionError("the report on real gradients differs from "
+                             "its plain version")
+    if not torch.equal(MH.maghist_batch(G), MH.hist_rows(G)):
+        raise AssertionError("maghist_batch on real gradients differs")
+    zero = float((G == 0).float().mean())
+    b, by_ = bound(4 * n * d + 4 * n * r, n * d)
+    out = {"threshold_topk_batch": dict(
+        ms=device_ms(lambda: ops.threshold_topk_batch(G, r)),
+        plain_ms=device_ms(lambda: RP.threshold_topk_batch_plain(G, r)),
+        bound_ms=b, bound_by=by_,
+        library_ms=device_ms(lambda: torch.topk(G.abs(), r, dim=1)))}
+    hb, hby = bound(4 * n * d + 4 * n * MH.NBINS, n * d)
+    out["maghist_batch"] = dict(
+        ms=device_ms(lambda: MH.maghist_batch(G)),
+        plain_ms=device_ms(lambda: MH.hist_rows(G)), bound_ms=hb,
+        bound_by=hby, library_ms=None)
+    say(f"  real gradients ({n} x {d}, {100 * zero:.2f}% exact zeros): "
+        f"report {out['threshold_topk_batch']['ms']:.4f} ms (plain "
+        f"{out['threshold_topk_batch']['plain_ms']:.4f}, torch.topk "
+        f"{out['threshold_topk_batch']['library_ms']:.4f}, bound {b:.6f}); "
+        f"maghist_batch alone {out['maghist_batch']['ms']:.4f}; profiled: "
+        + kernel_breakdown(torch, lambda: ops.threshold_topk_batch(G, r)))
+    cand = rep.long()
+    ages = eng.age.cluster_age.index_select(
+        0, eng.age.cluster_of.long()).gather(1, cand)
+    sel = {}
+    picks = None
+    for C, S in ((6, 1), (3, 2), (1, 6)):
+        c3, a3 = cand.view(C, S, r), ages.view(C, S, r)
+        valid = torch.ones((C, S), dtype=torch.bool, device=G.device)
+        got = ST.segmented_age_topk(c3, a3, valid, k)
+        if not torch.equal(got, ST.segmented_age_topk_plain(c3, a3, valid,
+                                                            k)):
+            raise AssertionError(f"segmented_age_topk on real reports "
+                                 f"differs at ({C}, {S})")
+        sb, sby = bound(4 * (2 * C * S * r + C * S + C * S * k),
+                        C * S * k * r)
+        sel[f"{C}x{S}"] = dict(
+            path=ST.layout(S, r, k)["path"],
+            ms=device_ms(lambda: ST.segmented_age_topk(c3, a3, valid, k)),
+            plain_ms=device_ms(lambda: ST.segmented_age_topk_plain(
+                c3, a3, valid, k), reps=5, warmup=1),
+            bound_ms=sb, bound_by=sby, library_ms=None)
+        picks = got
+    out["segmented_age_topk"] = sel
+    say("  real reports, segmented_age_topk: " + ", ".join(
+        f"({c}) {t['path']} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f})"
+        for c, t in sel.items()))
+    idx = picks.reshape(-1)
+    vals = G.reshape(-1).gather(0, (torch.arange(n, device=G.device)
+                                    .repeat_interleave(k) * d
+                                    + idx.long()))
+    age = eng.age.cluster_age[0].contiguous()
+    dense, _ = SA.sparse_aggregate(idx, vals, age)
+    if not torch.equal(dense.cpu(), _upload_order_sum(torch, idx, vals, d)):
+        raise AssertionError("sparse_aggregate on real picks is not the "
+                             "upload-order sum")
+    ab, aby = bound(8 * n * k + 12 * d, n * k)
+    idx64 = idx.long()
+    out["sparse_aggregate"] = dict(
+        ms=device_ms(lambda: SA.sparse_aggregate(idx, vals, age)),
+        plain_ms=device_ms(lambda: SA.sparse_aggregate_plain(idx, vals,
+                                                             age)),
+        bound_ms=ab, bound_by=aby,
+        library_ms=device_ms(lambda: torch.zeros(d, device=G.device)
+                             .index_add_(0, idx64, vals)))
+    t = out["sparse_aggregate"]
+    say(f"  real picks, sparse_aggregate NK={n * k} d={d}: {t['ms']:.4f} ms "
+        f"(plain {t['plain_ms']:.4f}, index_add_ {t['library_ms']:.4f}, "
+        f"bound {ab:.6f})")
+    return out
+
+
+def phase_cifar_slice(torch, dev, shards, test, profile: bool):
+    """fig5 on the card through ``FederatedEngine("cnn")`` and the step
+    driver: 2 rAge-k rounds at the paper's H 100 (round ms, ms per local
+    step, peak memory), then 20 rAge-k rounds at H 10 and M 10 (the labels
+    after each recluster and the (C, S) selection took), the kernels on
+    real gradients, (``--profile``) 3 more rounds under the profiler, 4
+    rounds with M 2 and DBSCAN eps 1.0, whose recluster joins all six
+    clients (rounds 3-4 on the one-cluster path), and 10 rTop-k rounds at
+    H 10; each round through ``drive``. Returns the launch counts summed
+    over the runs and the real-gradient records."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import segmented_topk as ST
+
+    say(f"cifar slice: fig5 at r {FIG5['r']}, k {FIG5['k']}, batch "
+        f"{FIG5['batch_size']}, lr {FIG5['lr']}; cuts from the paper: H "
+        f"{FIG5['H']} -> {FIG5_CUT['H']} and M {FIG5['M']} -> "
+        f"{FIG5_CUT['M']} for the 20 rAge-k and 10 rTop-k rounds, 1,400 "
+        f"rounds -> 20; 2 rounds at the paper's H {FIG5['H']}")
+    cifar_repeat(torch, dev, shards, test)
+    total = {}
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = FederatedEngine("cnn", shards, test, RAgeKConfig(**FIG5), seed=0)
+    launches, t_rounds, m = drive(eng, 2, ("rage_k", "segmented"))
+    add(launches)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"cifar slice: 2 rAge-k rounds at H {FIG5['H']} on "
+        f"{torch.cuda.get_device_name(0)}: round ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in t_rounds)
+        + f" ({t_rounds[-1] * 1e3 / FIG5['H']:.3f} ms per local step in "
+        f"round 2, the {FIG5['H']}-step draw included); losses mean "
+        f"{float(m['losses'].mean()):.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    del eng, m
+    torch.cuda.empty_cache()
+
+    hp = RAgeKConfig(**{**FIG5, **FIG5_CUT})
+    eng = FederatedEngine("cnn", shards, test, hp, seed=0)
+    t_all = []
+    for first in range(1, 21, hp.M):
+        cs = (eng._num_seg, min(eng._max_seg, eng.n))
+        launches, t_rounds, m = drive(eng, hp.M, ("rage_k", "segmented"))
+        add(launches)
+        t_all += t_rounds
+        labels = eng.cluster_of.tolist()
+        say(f"cifar slice: rAge-k rounds {first}-{first + hp.M - 1} selected "
+            f"on (C, S) = {cs}: median round "
+            f"{statistics.median(t_rounds) * 1e3:.1f} ms, losses mean "
+            f"{float(m['losses'].mean()):.4f}; recluster at round "
+            f"{first + hp.M - 1}: labels {labels} ({_groups_matched(labels)}"
+            f"), next (C, S) = ({eng._num_seg}, {eng._max_seg})")
+    median = statistics.median(t_all[1:])
+    acc = eng.eval_acc()
+    say(f"cifar slice: 20 rAge-k rounds at H {hp.H}: median round "
+        f"{median * 1e3:.2f} ms ({median * 1e3 / hp.H:.3f} ms per local "
+        f"step), recluster {eng.recluster_s * 1e3:.1f} ms in all; acc "
+        f"{acc:.4f}")
+    real = cifar_real_times(torch, eng)
+    if profile:
+        phase_profile(torch, eng, median, rounds=3)
+    del eng, m
+    torch.cuda.empty_cache()
+
+    # the one-cluster path: DBSCAN's eps 1.0 puts every client within
+    # reach, so the round-2 recluster joins all six and rounds 3-4 select
+    # them as one cluster, on segmented_age_topk's device-memory path
+    one = FederatedEngine("cnn", shards, test, RAgeKConfig(
+        **{**FIG5, **FIG5_CUT, "M": 2, "eps": 1.0}), seed=0)
+    add(drive(one, 2, ("rage_k", "segmented"))[0])
+    cs = (one._num_seg, one._max_seg)
+    if cs != (1, one.n):
+        raise AssertionError(f"eps 1.0 clustered {one.cluster_of.tolist()}")
+    launches, t_rounds, m = drive(one, 2, ("rage_k", "segmented"))
+    add(launches)
+    say(f"cifar slice: one cluster (M 2, eps 1.0): labels "
+        f"{one.cluster_of.tolist()} after round 2, rounds 3-4 selected on "
+        f"(C, S) = {cs}, the {ST.layout(cs[1], hp.r, hp.k)['path']} path of "
+        f"segmented_age_topk: median round "
+        f"{statistics.median(t_rounds) * 1e3:.1f} ms, losses mean "
+        f"{float(m['losses'].mean()):.4f}, launches {launches}")
+    del one, m
+
+    rtop = FederatedEngine("cnn", shards, test,
+                           RAgeKConfig(**{**FIG5, **FIG5_CUT},
+                                       method="rtop_k"), seed=0)
+    launches, t_rounds, m = drive(rtop, 10, ("rtop_k", "segmented"))
+    add(launches)
+    if rtop.cluster_of.tolist() != list(range(rtop.n)):
+        raise AssertionError(f"cnn rtop_k reclustered: "
+                             f"{rtop.cluster_of.tolist()}")
+    say(f"cifar slice: 10 rTop-k rounds at H {hp.H}: median round "
+        f"{statistics.median(t_rounds[1:]) * 1e3:.2f} ms, losses mean "
+        f"{float(m['losses'].mean()):.4f}, acc {rtop.eval_acc():.4f}; "
+        f"launches {launches}")
+    say(f"cifar slice: kernel launches {total}")
+    return total, real
 
 
 def _sdpa(torch, q, k, v, cache_len):
@@ -1199,8 +1574,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.data.federated import paper_mnist_split
-    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.data.federated import (paper_cifar_split,
+                                            paper_mnist_split)
+    from repro_torch.data.synthetic import cifar10_like, mnist_like
     from repro_torch.kernels import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1239,7 +1615,19 @@ def main() -> int:
     base, rtop, rtop_median_s = phase_baselines(torch, shards, test, acc)
     if profile:
         phase_profile(torch, rtop, rtop_median_s)
-    del eng, rtop
+    del eng, rtop, shards, test, x, y
+
+    t0 = time.perf_counter()
+    (x, y), test = cifar10_like(n_train=50_000, n_test=10_000, seed=0)
+    shards = paper_cifar_split(x, y, seed=0)
+    del x, y
+    say(f"data: cifar10_like 50000/10000 and paper_cifar_split in "
+        f"{time.perf_counter() - t0:.1f} s (shard sizes "
+        f"{[len(s[1]) for s in shards]})")
+    phase_cifar_parity(torch, dev, shards, test)
+    cifar, real = phase_cifar_slice(torch, dev, shards, test, profile)
+    del shards, test
+    torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
     smoke = phase_smoke_serve(torch, dev)
     serve = phase_serve(torch, dev, profile)
@@ -1247,8 +1635,10 @@ def main() -> int:
     long = phase_long_decode(torch, dev)
 
     for k in kernels:
-        k["launches"] = sum(run[k["name"]]
-                            for run in (launches, base, smoke, serve, long))
+        k["launches"] = sum(run[k["name"]] for run in (launches, base, cifar,
+                                                       smoke, serve, long))
+        if k["name"] in real:
+            k["cifar_real_gradients"] = real[k["name"]]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

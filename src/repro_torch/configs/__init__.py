@@ -33,8 +33,8 @@ _ARCHS = {
     "phi4-mini-3.8b": "item 16.1 (the other dense configs)",
     "qwen1.5-110b": "item 16.1 (the other dense configs)",
     # the paper's own networks (FederatedEngine builds them directly)
-    "mnist-mlp": "item 14 (the fl_train CLI)",
-    "cifar-cnn": "items 2 and 14 (the CNN slice, the fl_train CLI)",
+    "mnist-mlp": "mnist_mlp",
+    "cifar-cnn": "cifar_cnn",
 }
 
 

@@ -1,6 +1,8 @@
 """Non-i.i.d. federated splits: the port's numpy copy of
-``repro.data.federated`` for the paper's MNIST layout (10 clients, each
-holding two labels; clients 2i and 2i+1 share the same label pair)."""
+``repro.data.federated`` for the paper's two layouts. MNIST: 10 clients,
+each holding two labels; clients 2i and 2i+1 share the same label pair.
+CIFAR10: 6 clients in three label groups, {0,1,2}, {3,4,5} and
+{6,7,8,9}, held by clients (0, 1), (2, 3) and (4, 5)."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,7 +32,13 @@ def label_partition(x, y, client_labels: list[list[int]], *, seed: int = 0):
 
 PAPER_MNIST_LABELS = [[0, 1], [0, 1], [2, 3], [2, 3], [4, 5], [4, 5],
                       [6, 7], [6, 7], [8, 9], [8, 9]]
+PAPER_CIFAR_LABELS = [[0, 1, 2], [0, 1, 2], [3, 4, 5], [3, 4, 5],
+                      [6, 7, 8, 9], [6, 7, 8, 9]]
 
 
 def paper_mnist_split(x, y, seed: int = 0):
     return label_partition(x, y, PAPER_MNIST_LABELS, seed=seed)
+
+
+def paper_cifar_split(x, y, seed: int = 0):
+    return label_partition(x, y, PAPER_CIFAR_LABELS, seed=seed)

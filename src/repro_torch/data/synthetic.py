@@ -1,6 +1,6 @@
-"""Procedural MNIST stand-in: the port's numpy copy of
-``repro.data.synthetic`` (``make_image_dataset``, ``mnist_like``), draw
-for draw the same arrays from the same seed.
+"""Procedural MNIST and CIFAR10 stand-ins: the port's numpy copy of
+``repro.data.synthetic`` (``make_image_dataset``, ``mnist_like``,
+``cifar10_like``), draw for draw the same arrays from the same seed.
 
 Each class c has a fixed random prototype image; a sample is
 ``prototype[c] * (1 - noise) + noise * N(0,1)`` plus a small random
@@ -48,5 +48,14 @@ def mnist_like(n_train: int = 60_000, n_test: int = 10_000, seed: int = 0):
     xtr, ytr = make_image_dataset(n_train, (28, 28, 1), 10, seed=seed,
                                   proto_seed=seed)
     xte, yte = make_image_dataset(n_test, (28, 28, 1), 10, seed=seed + 1,
+                                  proto_seed=seed)
+    return (xtr, ytr), (xte, yte)
+
+
+def cifar10_like(n_train: int = 50_000, n_test: int = 10_000, seed: int = 0):
+    """32x32x3, 10 classes: the paper's CIFAR10 stand-in."""
+    xtr, ytr = make_image_dataset(n_train, (32, 32, 3), 10, seed=seed,
+                                  proto_seed=seed)
+    xte, yte = make_image_dataset(n_test, (32, 32, 3), 10, seed=seed + 1,
                                   proto_seed=seed)
     return (xtr, ytr), (xte, yte)

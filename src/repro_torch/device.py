@@ -1,5 +1,8 @@
-"""Device resolution: the card by default, the CPU only on request."""
+"""Device resolution: the card by default, the CPU only on request; and
+the float32 scope the paper nets compute in."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -12,3 +15,20 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def strict_fp32():
+    """TF32 off for cuBLAS matmuls and cuDNN convolutions inside, the
+    caller's settings restored after. PyTorch lets cuDNN convolve float32
+    in TF32 by default, which would make the card's CNN another function
+    than the CPU's (and the reference's)."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv

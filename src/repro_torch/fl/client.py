@@ -4,9 +4,12 @@
 All N clients advance H local Adam steps at once. Their parameters are
 one flat (N, d) tensor; each step views it as the model's leaves
 (stacked over clients), so the batch over clients is written out as
-batched matmuls, and one backward of the summed per-client losses gives
-every client's own gradient row. The last step's flat gradient feeds the
-fused top-r candidate report.
+batched matmuls (and, for the CNN, grouped convolutions), and one
+backward of the summed per-client losses gives every client's own
+gradient row. Model state that is not a parameter (the CNN's BatchNorm
+running statistics, a tree of (N, C) leaves; ``{}`` for the MLP)
+threads through the steps beside the parameters. The last step's flat
+gradient feeds the fused top-r candidate report.
 
 Flat order is ``jax.tree_util``'s: leaves in sorted-key order at every
 level (``fc1.b, fc1.w, fc2.b, fc2.w`` for the MLP), so a flat index
@@ -74,32 +77,54 @@ def unflattener(template) -> Callable:
 def make_local_phase(apply_loss: Callable, unflatten: Callable, lr: float, *,
                      report_r: int | None = None,
                      report_impl: str = "sort") -> Callable:
-    """apply_loss(tree, x, y) -> (N,) per-client losses for leaves stacked
-    over clients.
+    """apply_loss(tree, state, x, y) -> ((N,) per-client losses, new state)
+    for leaves and state stacked over clients.
 
-    Returns phase(params_s (N, d), opt_s, bx (N, H, B, ...), by (N, H, B))
-    -> (params_s, opt_s, G (N, d), report (N, r) | None, losses (N,)):
-    H Adam steps per client, the flat last-step gradients, the fused top-r
-    candidate report (``client_candidates(G, report_r, report_impl)``) and
-    the mean loss per client over the H steps."""
+    Returns phase(params_s (N, d), opt_s, state_s, bx (N, H, B, ...),
+    by (N, H, B)) -> (params_s, opt_s, state_s, G (N, d), report (N, r) |
+    None, losses (N,)): H Adam steps per client, the model state after
+    them, the flat last-step gradients, the fused top-r candidate report
+    (``client_candidates(G, report_r, report_impl)``) and the mean loss
+    per client over the H steps."""
     opt = adam(lr)
 
-    def phase(params_s, opt_s, bx, by):
+    def phase(params_s, opt_s, state_s, bx, by):
         losses = []
         g = None
         for h in range(bx.shape[1]):
             p = params_s.detach().requires_grad_(True)
-            loss = apply_loss(unflatten(p), bx[:, h], by[:, h])
+            loss, state_s = apply_loss(unflatten(p), state_s, bx[:, h],
+                                       by[:, h])
             (g,) = torch.autograd.grad(loss.sum(), p)
             updates, opt_s = opt.update(g, opt_s, p)
             params_s = apply_updates(p.detach(), updates)
             losses.append(loss.detach())
         report = (client_candidates(g, report_r, report_impl)
                   if report_r is not None else None)
-        return (params_s, opt_s, g, report,
+        return (params_s, opt_s, state_s, g, report,
                 torch.stack(losses, dim=1).mean(dim=1))
 
     return phase
+
+
+def stack_clients(trees: list):
+    """Trees of equal structure -> one tree whose leaves are stacked over
+    a new leading client axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack_clients([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def client_tree(tree, i: int):
+    """Client i's row of every leaf of a tree stacked over clients."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def broadcast_global(global_params: torch.Tensor, n: int) -> torch.Tensor:

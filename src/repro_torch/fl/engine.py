@@ -1,14 +1,16 @@
 """FederatedEngine, the synchronous round (paper Algorithm 1): the port of
-``repro.fl.engine`` for the fig3 setting's paths: the MNIST MLP, full
-participation, the dense age layout, every selection method of
-``make_strategy``, the threshold (or sort) candidate report, masked
-compute and the step driver.
+``repro.fl.engine`` for the paths of the paper's two settings: the MNIST
+MLP (fig3) and the CIFAR CNN (fig5, its BatchNorm statistics held per
+client), full participation, the dense age layout, every selection
+method of ``make_strategy``, the threshold (or sort) candidate report,
+masked compute and the step driver.
 
 One rAge-k round, all on the engine's device:
 
 1. draw each client's H batches from the device shard store;
-2. run H Adam steps per client, keep the flat last-step gradient and its
-   top-r candidate report (on the card the ``maghist_batch`` and
+2. run H Adam steps per client (TF32 off: float32 matmuls and
+   convolutions), keep the flat last-step gradient and its top-r
+   candidate report (on the card the ``maghist_batch`` and
    ``threshold_topk_batch`` kernels);
 3. pick k indices per client by cluster age, disjoint within a cluster
    (``selection='segmented'``: the ``segmented_age_topk`` kernel;
@@ -47,7 +49,7 @@ from repro_torch.core.compression import bytes_per_index, bytes_per_round
 from repro_torch.core.strategies import (age_select, make_strategy,
                                          segmented_rage_select)
 from repro_torch.data.pipeline import DeviceShardStore
-from repro_torch.device import resolve
+from repro_torch.device import resolve, strict_fp32
 from repro_torch.fl import client as C
 from repro_torch.fl.schedule import SchedState, make_scheduler
 from repro_torch.fl.server import aggregate_sparse, aggregate_sparse_fused
@@ -115,14 +117,26 @@ class FLResult:
 
 
 def _build_model(kind: str, generator: torch.Generator, device):
-    """(params tree, apply_loss(tree, x, y) -> per-client losses,
-    predict(tree, x) -> logits)."""
+    """(params tree, model state tree ({} for the MLP), apply_loss(tree,
+    state, x, y) -> (per-client losses, new state), predict(tree, state,
+    x) -> logits)."""
     if kind == "mlp":
-        def apply_loss(tree, x, y):
-            return C.softmax_xent(P.mlp_apply(tree, x), y)
-        return P.mlp_init(generator, device), apply_loss, P.mlp_apply
+        def apply_loss(tree, state, x, y):
+            return C.softmax_xent(P.mlp_apply(tree, x), y), state
+
+        def predict(tree, state, x):
+            return P.mlp_apply(tree, x)
+        return P.mlp_init(generator, device), {}, apply_loss, predict
     if kind == "cnn":
-        raise _todo("kind='cnn'", "items 2 and 8: the CIFAR CNN slice")
+        params, state = P.cnn_init(generator, device)
+
+        def apply_loss(tree, state, x, y):
+            logits, new_state = P.cnn_apply(tree, state, x, train=True)
+            return C.softmax_xent(logits, y), new_state
+
+        def predict(tree, state, x):
+            return P.cnn_apply(tree, state, x, train=False)[0]
+        return params, state, apply_loss, predict
     raise ValueError(kind)
 
 
@@ -244,15 +258,18 @@ class FederatedEngine:
         engine = FederatedEngine("mlp", shards, test, hp, seed=0)
         result = engine.run(rounds=200, eval_every=5)
 
+    ``kind`` is ``"mlp"`` (Network-1) or ``"cnn"`` (Network-2).
     ``device=None`` means the CUDA card and raises without one;
     ``device="cpu"`` runs the kernels' plain versions. ``params`` (a
     parameter tree, e.g. from ``weights.params_from_jax``) replaces the
-    seeded initial weights.
+    seeded initial weights, ``state`` (the CNN's BatchNorm statistics,
+    ``{"conv{i}": {"mean", "var"}}``) the initial model state; every
+    client starts from both.
     """
 
     def __init__(self, kind: str, shards: list, test: tuple,
                  hp: RAgeKConfig, *, seed: int = 0, device=None,
-                 params=None, ef: bool = False,
+                 params=None, state=None, ef: bool = False,
                  selection: str = "segmented", compute: str = "auto",
                  faults=None):
         if selection not in ("scan", "segmented"):
@@ -276,10 +293,12 @@ class FederatedEngine:
         self.kind = kind
         self.n = n = len(shards)
         self.seed = seed
-        init, apply_loss, self._predict = _build_model(
+        init, state0, apply_loss, self._predict = _build_model(
             kind, torch.Generator().manual_seed(seed), dev)
         if params is None:
             params = init
+        if state is None:
+            state = state0
         self._unflatten = C.unflattener(params)
         self.g_params = C.flatten_tree(params).to(device=dev,
                                                   dtype=torch.float32)
@@ -309,6 +328,11 @@ class FederatedEngine:
         self.g_opt_state = self._g_opt.init(self.g_params)
         self.params_s = C.broadcast_global(self.g_params, n)
         self.opt_s = adam(hp.lr).init(self.params_s, batch_dims=1)
+        # per-client model state (the CNN's BatchNorm running statistics):
+        # leaves (N, ...)
+        self.state_s = (C.tree_map(lambda t: t.to(dev, torch.float32),
+                                   C.stack_clients([state] * n))
+                        if state else {})
         self.age = DeviceAgeState.create(d, n, dev)
         self.sched = SchedState.create(n, dev)
         self.round_idx = 0
@@ -380,9 +404,10 @@ class FederatedEngine:
         (d,), and the participation and age scalars."""
         hp, n, d = self.hp, self.n, self.d
         plan = self._scheduler.plan(self.sched)
-        with record_function("local_phase"):
-            _, self.opt_s, G, cands, losses = self._local_phase(
-                self.params_s, self.opt_s, bx, by)
+        with record_function("local_phase"), strict_fp32():
+            _, self.opt_s, self.state_s, G, cands, losses = \
+                self._local_phase(self.params_s, self.opt_s, self.state_s,
+                                  bx, by)
 
         with record_function("select"):
             idx, seg = self._select(G, cands, plan)
@@ -486,11 +511,14 @@ class FederatedEngine:
 
     @torch.no_grad()
     def eval_acc(self) -> float:
-        """Mean over clients of each client's accuracy on its own labels."""
+        """Mean over clients of each client's accuracy on its own labels,
+        each with its own parameters and model state."""
         t0 = time.perf_counter()
         accs = []
         for i, (xe, ye) in enumerate(self._eval_sets):
-            logits = self._predict(self._unflatten(self.params_s[i]), xe)
+            with strict_fp32():
+                logits = self._predict(self._unflatten(self.params_s[i]),
+                                       C.client_tree(self.state_s, i), xe)
             accs.append((logits.argmax(-1) == ye).to(torch.float32).mean())
         acc = float(torch.stack(accs).mean())
         self.device_s += time.perf_counter() - t0

@@ -88,6 +88,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # the paper's nets are no LMs: refuse them before touching a device
+    T.require_ported(cfg)
     cfg = cfg.replace(remat=False)
     dev = resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -53,20 +53,24 @@ def _sparse_sum(G, idx):
     return g_sum
 
 
-def _one_round(shards, test, hp, *, selection="segmented", cluster_of=None):
-    """The reference engine's round 1, and the port's round body on the
-    reference's initial params and round-1 batches. ``cluster_of`` sets
-    both engines' clusters first. Returns (jeng, jm, jG, teng, tm), jG the
-    reference's last-step gradients."""
-    jeng = JEngine("mlp", shards, test, JCfg(**hp), seed=0,
-                   selection=selection)
-    bx, by, _ =jeng._store.draw(jeng._data, jeng.samp, FIG3["H"])
-    jG = np.asarray(jeng._local_phase(jeng.params_s, jeng.opt_s, {},
-                                      (bx, by), None)[3])
-    params0 = jax.tree_util.tree_map(np.asarray, jeng.g_params)
-    teng = FederatedEngine("mlp", shards, test, RAgeKConfig(**hp),
+def _one_round(shards, test, hp, *, kind="mlp", selection="segmented",
+               cluster_of=None):
+    """The reference engine's round 1 (its masked path), and the port's
+    round body on the reference's initial params, model state (the CNN's
+    BatchNorm statistics; none for the MLP) and round-1 batches.
+    ``cluster_of`` sets both engines' clusters first. Returns (jeng, jm,
+    jG, teng, tm), jG the reference's last-step gradients."""
+    jeng = JEngine(kind, shards, test, JCfg(**hp), seed=0,
+                   selection=selection, compute="masked")
+    bx, by, _ = jeng._store.draw(jeng._data, jeng.samp, hp["H"])
+    jG = np.asarray(jeng._local_phase(jeng.params_s, jeng.opt_s,
+                                      jeng.state_s, (bx, by), None)[3])
+    params0, state0 = jax.tree_util.tree_map(np.asarray,
+                                             (jeng.g_params, jeng._state0))
+    teng = FederatedEngine(kind, shards, test, RAgeKConfig(**hp),
                            seed=0, device="cpu", selection=selection,
-                           params=params_from_jax(params0, "cpu"))
+                           params=params_from_jax(params0, "cpu"),
+                           state=params_from_jax(state0, "cpu"))
     if cluster_of is not None:
         cl = np.asarray(cluster_of, np.int32)
         jeng.age = jeng.age._replace(cluster_of=jnp.asarray(cl))
@@ -240,11 +244,13 @@ def test_package_imports_no_jax():
                                          os.path.dirname(root)})
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 36
+    assert len(mods) >= 38
     assert {"repro_torch.configs.internlm2_1_8b", "repro_torch.launch.serve",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.registry",
-            "repro_torch.kernels.decode_attention"} <= mods
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.configs.cifar_cnn", "repro_torch.configs.mnist_mlp",
+            "repro_torch.models.paper_nets"} <= mods
 
 
 def test_no_silent_cpu(fig3_data, monkeypatch):
@@ -256,7 +262,7 @@ def test_no_silent_cpu(fig3_data, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,hp", [
-    ({"kind": "cnn"}, {}), ({}, {"schedule": "aoi"}),
+    ({}, {"schedule": "aoi"}),
     ({}, {"schedule": "deadline"}), ({"compute": "gathered"}, {}),
     ({}, {"age_layout": "hierarchical"}), ({"ef": True}, {}),
     ({"faults": object()}, {}), ({}, {"schedule": "uniform"})])

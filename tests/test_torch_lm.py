@@ -17,6 +17,7 @@ each with its reason:
   q * scale and the softmax weights to bfloat16, which the port, like the
   TPU kernel, keeps in float32.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -30,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import ml_dtypes
 
+from repro.configs import get_config as j_config
 from repro.configs import get_smoke_config as j_smoke_config
 from repro.configs import list_archs as j_list_archs
 from repro.models import layers as JL
@@ -374,13 +376,32 @@ def test_registry_lists_every_reference_arch():
     assert get_model(get_config(ARCH)).decode_step is TT.decode_step
 
 
-@pytest.mark.parametrize("arch", [a for a in j_list_archs() if a != ARCH])
+# the archs whose configs the port carries: internlm2 (served) and the
+# paper's two nets (built by FederatedEngine, refused by serve)
+PORTED = (ARCH, "mnist-mlp", "cifar-cnn")
+
+
+@pytest.mark.parametrize("arch", [a for a in j_list_archs()
+                                  if a not in PORTED])
 def test_unported_arch_raises(arch):
     for fn in (get_config, get_smoke_config):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["mnist-mlp", "cifar-cnn"])
+def test_paper_net_configs_match_and_serve_refuses(arch, monkeypatch):
+    """The paper's nets: every field equal to the reference's config; the
+    serve CLI refuses them as no LM, before it looks for a card."""
+    for fn in (get_config, get_smoke_config):
+        assert (dataclasses.asdict(fn(arch))
+                == dataclasses.asdict(j_config(arch)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cpu"]):
+        with pytest.raises(ValueError, match="not an LM"):
+            serve.main(["--arch", arch, "--smoke", *extra])
 
 
 @pytest.mark.parametrize("kw", [

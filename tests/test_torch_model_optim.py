@@ -82,13 +82,14 @@ def test_local_phase_matches(impl):
     flat = TC.broadcast_global(TC.flatten_tree(tparams), n)
     topt = TO.adam(1e-3).init(flat, batch_dims=1)
 
-    def tloss(tree, x, y):
-        return TC.softmax_xent(TP.mlp_apply(tree, x), y)
+    def tloss(tree, state, x, y):
+        return TC.softmax_xent(TP.mlp_apply(tree, x), y), state
 
-    _, topt2, tG, trep, tlosses = TC.make_local_phase(
+    _, topt2, tstate, tG, trep, tlosses = TC.make_local_phase(
         tloss, TC.unflattener(tparams), 1e-3, report_r=r,
-        report_impl=impl)(flat, topt, torch.from_numpy(bx),
+        report_impl=impl)(flat, topt, {}, torch.from_numpy(bx),
                           torch.from_numpy(by).long())
+    assert tstate == {}
     _close(tlosses, jlosses)
     _close(tG, jG)
     np.testing.assert_array_equal(trep.numpy(), np.asarray(jrep))
