@@ -32,12 +32,20 @@ the last line:
    ``maghist`` never; clusters stay singletons), then 5 rounds each of
    CAFe, top-k, random-k, dense and rAge-k scan, each round checked
    against its method's kernel launches;
-6a. cifar parity: one fig5 round, ``FederatedEngine("cnn")`` on the
+6a. chunked: the fig3 paths through ``run_scanned`` (20 rAge-k rounds,
+   the label pairs at round 20 from the recluster worker; 20 rTop-k; 5
+   of each other path), each round on the card one replay of a CUDA
+   graph of the round, each run bitwise equal to ``run`` from the same
+   seed; every replay's launches by its graph's tally, which the
+   profiler's kernel count matches; a chunk of replays with no host sync
+   (``set_sync_debug_mode("error")``); then the rates of rAge-k and
+   rTop-k, the step driver and the chunked one in turns;
+6b. cifar parity: one fig5 round, ``FederatedEngine("cnn")`` on the
    full Network-2 (d = 2,515,338, 6 clients of ``paper_cifar_split``, r
    2,500, k 100) at batch 32 and H 1, on the card against the CPU from
    the same params, BatchNorm state and batches, for rAge-k (segmented
    and scan) and rTop-k;
-6b. cifar slice: ``cifar10_like`` 50,000/10,000 at fig5's
+6c. cifar slice: ``cifar10_like`` 50,000/10,000 at fig5's
    hyper-parameters (batch 256, Adam lr 1e-4): the rAge-k round twice
    from the same inputs (bitwise equal or not, reported), 2 rounds at
    the paper's H 100, then 20 rAge-k rounds at H 10 and M 10 (two
@@ -45,6 +53,12 @@ the last line:
    round's real gradients, 4 rounds whose recluster (eps 1.0) joins all
    six clients in one cluster, and 10 rTop-k rounds at H 10, every round
    against its method's kernel launches;
+6d. cifar chunked: 2 rAge-k rounds at the paper's H 100 and 10 at H 10,
+   M 5 through ``run_scanned`` on cuDNN's default algorithms (capture
+   time, the graphs' pool), the draw's cost at H 100, 4 rounds chunked
+   against 4 stepwise under
+   ``device.deterministic()`` bitwise, the (1, 6) one-cluster graph, and
+   the rate at H 10, the two drivers in turns;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -67,7 +81,9 @@ after; the kernels' JSON record sums them over the paths.
 run under ``torch.profiler`` (host and device time per span of the
 round, the device's idle share, the top kernels; tables and traces in
 ``build/profile/``), three more CIFAR rAge-k rounds at H 10 after the
-slice's two reclusters, and eight more decode steps of the serve phase.
+slice's two reclusters, a profiled window of each driver in the rates
+(host ms, device busy ms, ``cudaLaunchKernel`` and ``cudaGraphLaunch``
+a round), and eight more decode steps of the serve phase.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -181,6 +197,13 @@ def _dev_us(e, total=False):
     return getattr(e, name, getattr(e, name.replace("device", "cuda"), 0))
 
 
+def kernel_name(key: str) -> str:
+    """A device row's kernel name without namespace, template or
+    arguments."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0].split(" ")[-1] or key[:40]
+
+
 def kernel_breakdown(torch, fn, reps: int = 10) -> str:
     """Device us per launch of each kernel that ``fn`` launches, and its
     launches per call, from ``torch.profiler`` over ``reps`` calls after
@@ -196,10 +219,8 @@ def kernel_breakdown(torch, fn, reps: int = 10) -> str:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    def name(key):   # the kernel's name without namespace or arguments
-        key = key.replace("(anonymous namespace)::", "")
-        return key.split("(")[0].split("<")[0].split(" ")[-1] or key[:40]
-    return ", ".join(f"{name(e.key)} {_dev_us(e) / max(1, e.count):.2f} us "
+    return ", ".join(f"{kernel_name(e.key)} "
+                     f"{_dev_us(e) / max(1, e.count):.2f} us "
                      f"x{e.count / reps:g}"
                      for e in sorted(rows, key=_dev_us, reverse=True))
 
@@ -1175,6 +1196,396 @@ def phase_cifar_slice(torch, dev, shards, test, profile: bool):
     return total, real
 
 
+# the chunked driver (run_scanned), fig3: (method, selection, rounds), each
+# run bitwise against the step driver from the same seed
+CHUNKED_FIG3 = [("rage_k", "segmented", 20), ("rtop_k", "segmented", 20),
+                ("cafe", "segmented", 5), ("top_k", "segmented", 5),
+                ("random_k", "segmented", 5), ("dense", "segmented", 5),
+                ("rage_k", "scan", 5)]
+# fig5 chunked: 10 rAge-k rounds at H 10 and M 5 (one recluster inside, one
+# at the end); the bitwise comparison at H 10 and M 2 (reclusters at rounds
+# 2 and 4) under device.deterministic()
+FIG5_CHUNK = dict(H=10, M=5)
+FIG5_DET = dict(H=10, M=2)
+# the rates in turns: fig3 windows of 20 rounds (M 20: one recluster at
+# each window's end, both drivers), three of each driver after two warm-up
+# windows (rAge-k's graphs for the singletons and the label pairs are
+# then captured); fig5 windows of 10 rounds at H 10 with M past the
+# window (no capture inside it), after a warm-up round
+RATE_FIG3 = (20, 3)
+RATE_FIG5 = dict(H=10, M=1000)
+# the kernels of the port's library, by device name: at fig3 each C entry
+# enqueues one of them
+LIB_KERNELS = {"block_counts_kernel", "row_sum_kernel", "report_kernel",
+               "emit_kernel", "segmented_age_topk_kernel", "fill_keys_kernel",
+               "walk_kernel", "run_kernel", "merge_kernel",
+               "accumulate_kernel", "maghist_blocks_kernel"}
+
+
+def same_run(torch, ea, ra, eb, rb) -> list:
+    """What differs, bitwise, between two engines' runs: the FLResult
+    columns and every buffer of the engine state. Empty when equal."""
+    import numpy as np
+    from repro_torch.fl import client as C
+
+    bad = [key for key in ("rounds", "loss", "acc", "uplink_bytes",
+                           "n_active", "aoi_mean", "aoi_peak", "age_mean",
+                           "age_peak")
+           if getattr(ra, key) != getattr(rb, key)]
+    if len(ra.requested) != len(rb.requested) or not all(
+            (a is None and b is None) or np.array_equal(a, b)
+            for a, b in zip(ra.requested, rb.requested)):
+        bad.append("requested")
+    if len(ra.cluster_labels) != len(rb.cluster_labels) or not all(
+            np.array_equal(a, b)
+            for a, b in zip(ra.cluster_labels, rb.cluster_labels)):
+        bad.append("cluster_labels")
+
+    def state(e):
+        return {"g_params": e.g_params,
+                **{f"g_opt.{i}": t for i, t in enumerate(e.g_opt_state)},
+                **{f"opt_s.{i}": t for i, t in enumerate(e.opt_s)},
+                **{f"bn.{i}": t
+                   for i, t in enumerate(C.tree_leaves(e.state_s))},
+                **e.age._asdict(), **e.samp._asdict(), **e.sched._asdict()}
+    sa, sb = state(ea), state(eb)
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    return bad
+
+
+def drive_chunked(torch, eng, rounds: int, path, eval_every: int):
+    """``eng.run_scanned(rounds)`` with every launch count set to 0 just
+    before: the counts read just after must be ``rounds`` times the
+    kernels of ``PER_ROUND[path]`` (eager warm-up rounds counted as they
+    launch, replays by their graph's tally), and each graph's tally
+    exactly one round's kernels. Returns (counts, result, host seconds)."""
+    import numpy as np
+    from repro_torch.kernels import build
+
+    want = {k: PER_ROUND[path].get(k, 0) for k in build.LAUNCHES}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_scanned(rounds, eval_every=eval_every)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if launches != {k: rounds * v for k, v in want.items()}:
+        raise AssertionError(f"{path} chunked: {rounds} rounds launched "
+                             f"{launches}, expected {want} a round")
+    for key, (_, tally, _) in eng._graphs.items():
+        if tally != want:
+            raise AssertionError(f"{path} graph {key}: a replay launches "
+                                 f"{tally}, expected {want}")
+    if not np.isfinite(res.loss).all():
+        raise AssertionError(f"{path} chunked: non-finite losses")
+    return launches, res, dt
+
+
+def sync_free_chunk(torch, eng, rounds: int):
+    """``rounds`` replays of ``eng``'s graph for its current packing bounds
+    under ``torch.cuda.set_sync_debug_mode("error")``: a chunk's replays
+    and metric stacks make no host sync (the counterpart of the
+    reference's ``test_scanned_chunk_is_transfer_free``). The engine is
+    left without its bookkeeping: call it last."""
+    if eng._graph_key() not in eng._graphs:
+        eng.run_scanned(1, eval_every=1)            # captures (it syncs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs, ints = eng._chunk(rounds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if fs.shape[0] != rounds or not torch.isfinite(fs).all():
+        raise AssertionError("a replayed chunk gave non-finite metrics")
+
+
+def tally_against_profiler(torch, eng, rounds: int = 10) -> int:
+    """The library's kernels that ``torch.profiler`` sees in ``rounds``
+    replays of ``eng``'s graph against the graph's tally times
+    ``rounds`` (at fig3 each C entry enqueues one kernel). Returns the
+    count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if eng._graph_key() not in eng._graphs:
+        eng.run_scanned(1, eval_every=1)
+    tally = eng._graphs[eng._graph_key()][1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._chunk(rounds)
+        torch.cuda.synchronize()
+    seen = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and kernel_name(e.name) in LIB_KERNELS)
+    if seen != rounds * sum(tally.values()):
+        raise AssertionError(f"the profiler saw {seen} of the library's "
+                             f"kernels in {rounds} replays; the tally says "
+                             f"{rounds} x {tally}")
+    return seen
+
+
+def phase_chunked(torch, shards, test):
+    """fig3 through ``run_scanned``: each ``CHUNKED_FIG3`` path chunked
+    against ``run`` from the same seed, bitwise (FLResult and engine
+    state), every launch by ``drive_chunked``; the rAge-k run's five label
+    pairs at round 20 from the recluster worker. Then, on the rAge-k and
+    rTop-k engines, a chunk of replays under the sync check and the tally
+    against the profiler. Returns the chunked runs' launch counts."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    total = {}
+    for method, selection, rounds in CHUNKED_FIG3:
+        hp = RAgeKConfig(**FIG3, method=method)
+        step = FederatedEngine("mlp", shards, test, hp, seed=0,
+                               selection=selection)
+        t0 = time.perf_counter()
+        rs = step.run(rounds, eval_every=rounds)
+        ts = time.perf_counter() - t0
+        eng = FederatedEngine("mlp", shards, test, hp, seed=0,
+                              selection=selection)
+        launches, rc, tc = drive_chunked(torch, eng, rounds,
+                                         (method, selection), rounds)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        name = f"{method}/{selection}"
+        bad = same_run(torch, step, rs, eng, rc)
+        if bad:
+            raise AssertionError(f"chunked {name}: differs from the step "
+                                 f"driver in {bad}")
+        labels = rc.cluster_labels[-1].tolist()
+        if method == "rage_k" and rounds == 20 and labels != PAIRS:
+            raise AssertionError(f"chunked rage_k: clusters {labels} at "
+                                 f"round 20, expected {PAIRS}")
+        say(f"chunked: fig3 {name}, {rounds} rounds: bitwise the step "
+            f"driver (losses, picks, ages, counts, labels, params, every "
+            f"state buffer); graphs {sorted(eng._graphs, key=str)}, "
+            f"labels {labels}; {tc * 1e3:.1f} ms (captures included) "
+            f"against stepwise {ts * 1e3:.1f} ms; launches {launches}")
+        if (method, selection) in (("rage_k", "segmented"),
+                                   ("rtop_k", "segmented")):
+            seen = tally_against_profiler(torch, eng)
+            sync_free_chunk(torch, eng, 5)
+            say(f"chunked: {name}: 10 replays, the profiler's count of "
+                f"the library's kernels {seen} == the tally; 5 replays "
+                f"under set_sync_debug_mode('error'): no host sync")
+        eng.close()
+        step.close()
+    return total
+
+
+def profile_window(torch, fn, rounds: int) -> dict:
+    """``fn`` (``rounds`` rounds) under ``torch.profiler``: host ms, device
+    busy ms (``busy_union_us``), ``cudaLaunchKernel`` and
+    ``cudaGraphLaunch`` calls, each per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")}
+    return dict(ms=wall * 1e3 / rounds,
+                busy_ms=busy_union_us(prof) / rounds / 1e3,
+                launch_kernel=calls.get("cudaLaunchKernel", 0) / rounds,
+                graph_launch=calls.get("cudaGraphLaunch", 0) / rounds)
+
+
+def _rates(torch, engines: dict, rounds: int, order: str, label: str,
+           profile_rounds: int = 0):
+    """Windows of ``rounds`` rounds (an eval at each window's end) of the
+    two engines in ``order`` ("S" the step driver, "C" the chunked one),
+    host clock after a sync; with ``profile_rounds``, one more window of
+    that many rounds of each under the profiler."""
+    def drive(v, n):
+        eng = engines[v]
+        return (eng.run if v == "S" else eng.run_scanned)(n, eval_every=n)
+
+    times = {"S": [], "C": []}
+    for v in order:
+        graphs = len(engines[v]._graphs)
+        t0 = time.perf_counter()
+        drive(v, rounds)
+        torch.cuda.synchronize()
+        times[v].append((time.perf_counter() - t0) * 1e3 / rounds)
+        if len(engines[v]._graphs) != graphs:
+            say(f"  ({label}: a capture fell inside a {v} window)")
+    say(f"rates: {label}, windows of {rounds} rounds in turns {order}: "
+        f"step driver " + ", ".join(f"{t:.3f}" for t in times["S"])
+        + " ms a round; chunked " + ", ".join(f"{t:.3f}" for t in times["C"])
+        + f" ms a round (medians {statistics.median(times['S']):.3f} / "
+        f"{statistics.median(times['C']):.3f})")
+    for v in "SC" if profile_rounds else "":
+        p = profile_window(torch, lambda: drive(v, profile_rounds),
+                           profile_rounds)
+        say(f"  profiled {label} {'step' if v == 'S' else 'chunked'}, "
+            f"{profile_rounds} rounds: {p['ms']:.3f} ms a round, device busy "
+            f"{p['busy_ms']:.3f} ms ({100 * p['busy_ms'] / p['ms']:.1f}%), "
+            f"cudaLaunchKernel {p['launch_kernel']:.1f} and cudaGraphLaunch "
+            f"{p['graph_launch']:.1f} a round")
+    return times
+
+
+def phase_rates_fig3(torch, shards, test, profile: bool):
+    """fig3 rAge-k and rTop-k, the step driver against the chunked one in
+    turns (``RATE_FIG3``), after two warm-up windows of each."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    rounds, turns = RATE_FIG3
+    for method in ("rage_k", "rtop_k"):
+        hp = RAgeKConfig(**FIG3, method=method)
+        engines = {v: FederatedEngine("mlp", shards, test, hp, seed=0)
+                   for v in "SC"}
+        engines["S"].run(2 * rounds, eval_every=rounds)
+        engines["C"].run_scanned(2 * rounds, eval_every=rounds)
+        _rates(torch, engines, rounds, "SCCSSC"[:2 * turns],
+               f"fig3 {method}", rounds if profile else 0)
+        for eng in engines.values():
+            eng.close()
+
+
+def phase_cifar_chunked(torch, shards, test, profile: bool):
+    """fig5 through ``run_scanned``: 2 rAge-k rounds at the paper's H 100
+    (the second a replay of the whole round), then 10 at H 10, M 5 on
+    cuDNN's default algorithms (capture time and the graphs' pool size;
+    the labels at each recluster); the draw's cost at H 100; 4 rounds
+    chunked against 4 stepwise at H 10, M 2 under
+    ``device.deterministic()``, bitwise; 4 rounds at M 2, eps 1.0, whose
+    rounds 3-4 replay the (1, 6) one-cluster graph; the rates at H 10 in
+    turns. Returns the chunked runs' launch counts."""
+    import gc
+
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.device import deterministic
+    from repro_torch.fl.engine import FederatedEngine
+
+    total = {}
+    path = ("rage_k", "segmented")
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+
+    def timed_captures(eng):
+        spans = []
+        capture = eng._capture
+
+        def timed(key):
+            t0 = time.perf_counter()
+            out = capture(key)
+            torch.cuda.synchronize()
+            spans.append((key, time.perf_counter() - t0))
+            return out
+        eng._capture = timed
+        return spans
+
+    def pool_bytes():
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+    # the paper's H 100: round 1 eager, then its capture; round 2 a replay
+    eng = FederatedEngine("cnn", shards, test, RAgeKConfig(**FIG5), seed=0)
+    spans = timed_captures(eng)
+    torch.cuda.reset_peak_memory_stats()
+    launches, res, dt = drive_chunked(torch, eng, 2, path, 2)
+    add(launches)
+    say(f"cifar chunked: 2 rAge-k rounds at the paper's H {FIG5['H']}: "
+        f"round 1 and the capture {spans[0][1]:.2f} s, round 2 (a replay of "
+        f"{FIG5['H']} local steps) and the eval {dt - spans[0][1]:.2f} s; "
+        f"graphs' pool {pool_bytes() / 2**30:.2f} GiB, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+        f"{res.loss}; launches {launches}")
+    eng.close()
+    del eng, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp = RAgeKConfig(**{**FIG5, **FIG5_CHUNK})
+    eng = FederatedEngine("cnn", shards, test, hp, seed=0)
+    spans = timed_captures(eng)
+    torch.cuda.reset_peak_memory_stats()
+    launches, res, dt = drive_chunked(torch, eng, 10, path, hp.M)
+    add(launches)
+    peak = torch.cuda.max_memory_allocated()
+    pool = pool_bytes()
+    replay_ms = ((dt - sum(t for _, t in spans)) * 1e3
+                 / (10 - len(spans)))
+    say(f"cifar chunked: 10 rAge-k rounds at H {hp.H}, M {hp.M} on "
+        f"cuDNN's default algorithms: {dt:.2f} s ({replay_ms:.1f} ms a "
+        f"replayed round, evals and reclusters included; the first round of "
+        f"each key eager, then its capture: "
+        + ", ".join(f"{k} {t:.2f} s" for k, t in spans)
+        + f"); labels {[l.tolist() for l in res.cluster_labels]} at rounds "
+        f"{res.rounds}; graphs' pool {pool / 2**30:.2f} GiB, peak device "
+        f"memory {peak / 2**30:.2f} GiB; losses {res.loss}; launches "
+        f"{launches}")
+    store = eng._store
+    h = FIG5["H"]
+    draw_ms = device_ms(lambda: store.draw(eng._data, eng.samp, h), reps=5,
+                        warmup=1)
+    perm_ms = device_ms(store._perm)
+    say(f"cifar chunked: the draw at H {h}: {draw_ms:.3f} ms on the device, "
+        f"of which {h} permutations of (6, {store.capacity}) at "
+        f"{perm_ms:.4f} ms each")
+    eng.close()
+    del eng, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with deterministic():
+        hp = RAgeKConfig(**{**FIG5, **FIG5_DET})
+        step = FederatedEngine("cnn", shards, test, hp, seed=0)
+        rs = step.run(4, eval_every=2)
+        eng = FederatedEngine("cnn", shards, test, hp, seed=0)
+        launches, rc, dt = drive_chunked(torch, eng, 4, path, 2)
+        add(launches)
+        bad = same_run(torch, step, rs, eng, rc)
+    if bad:
+        raise AssertionError(f"cifar chunked under deterministic(): differs "
+                             f"from the step driver in {bad}")
+    say(f"cifar chunked: 4 rounds at H {hp.H}, M {hp.M} under "
+        f"device.deterministic(): bitwise the step driver (losses, picks, "
+        f"ages, counts, labels {[l.tolist() for l in rc.cluster_labels]}, "
+        f"params, BatchNorm state, every buffer); graphs "
+        f"{sorted(eng._graphs, key=str)}")
+    for e in (eng, step):
+        e.close()
+    del eng, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    one = FederatedEngine("cnn", shards, test, RAgeKConfig(
+        **{**FIG5, **FIG5_CUT, "M": 2, "eps": 1.0}), seed=0)
+    launches, res, dt = drive_chunked(torch, one, 4, path, 2)
+    add(launches)
+    if (1, one.n) not in one._graphs:
+        raise AssertionError(f"eps 1.0 chunked: graphs {list(one._graphs)}, "
+                             f"labels {one.cluster_of.tolist()}")
+    say(f"cifar chunked: one cluster (M 2, eps 1.0): graphs "
+        f"{sorted(one._graphs, key=str)}, rounds 3-4 on (1, 6) (round 4 a "
+        f"replay), labels {[l.tolist() for l in res.cluster_labels]}; "
+        f"launches {launches}")
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hp = RAgeKConfig(**{**FIG5, **RATE_FIG5})
+    engines = {v: FederatedEngine("cnn", shards, test, hp, seed=0)
+               for v in "SC"}
+    engines["S"].run(1, eval_every=1)
+    engines["C"].run_scanned(1, eval_every=1)
+    _rates(torch, engines, 10, "SC", f"fig5 H {hp.H}", 3 if profile else 0)
+    for e in engines.values():
+        e.close()
+    return total
+
+
 def _sdpa(torch, q, k, v, cache_len):
     """The library's call for the same function: (B, H, 1, D) queries over
     (B, G, S, D) views of the cache with GQA and a boolean mask."""
@@ -1615,7 +2026,10 @@ def main() -> int:
     base, rtop, rtop_median_s = phase_baselines(torch, shards, test, acc)
     if profile:
         phase_profile(torch, rtop, rtop_median_s)
-    del eng, rtop, shards, test, x, y
+    del eng, rtop
+    chunked = phase_chunked(torch, shards, test)
+    phase_rates_fig3(torch, shards, test, profile)
+    del shards, test, x, y
 
     t0 = time.perf_counter()
     (x, y), test = cifar10_like(n_train=50_000, n_test=10_000, seed=0)
@@ -1626,6 +2040,7 @@ def main() -> int:
         f"{[len(s[1]) for s in shards]})")
     phase_cifar_parity(torch, dev, shards, test)
     cifar, real = phase_cifar_slice(torch, dev, shards, test, profile)
+    cifar_chunked = phase_cifar_chunked(torch, shards, test, profile)
     del shards, test
     torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
@@ -1635,8 +2050,9 @@ def main() -> int:
     long = phase_long_decode(torch, dev)
 
     for k in kernels:
-        k["launches"] = sum(run[k["name"]] for run in (launches, base, cifar,
-                                                       smoke, serve, long))
+        k["launches"] = sum(run[k["name"]] for run in (
+            launches, base, chunked, cifar, cifar_chunked, smoke, serve,
+            long))
         if k["name"] in real:
             k["cifar_real_gradients"] = real[k["name"]]
     say(json.dumps({"kernels": kernels}))

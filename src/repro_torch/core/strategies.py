@@ -61,13 +61,15 @@ def age_select(cand: torch.Tensor, cand_age: torch.Tensor, k: int):
 
 def _draw(gen, lead: tuple, n: int, k: int, device) -> torch.Tensor:
     """k distinct positions of range(n), uniform, per leading row, from
-    ``gen`` (int64)."""
+    ``gen`` (int64): the k largest of n uniforms. (``torch.multinomial``
+    without replacement checks its weights on the host, a sync that a
+    CUDA graph cannot hold.)"""
     if not isinstance(gen, torch.Generator):
         raise ValueError("a stochastic strategy draws from an explicit "
                          "torch.Generator (a shared default would make "
                          f"every client draw the same), got {gen!r}")
-    w = torch.ones((*lead, n), device=device)
-    return torch.multinomial(w, k, replacement=False, generator=gen)
+    u = torch.rand((*lead, n), generator=gen, device=device)
+    return torch.topk(u, k, dim=-1).indices
 
 
 def _reset_picked(age: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,12 @@ client reshuffles. Permutations come from a ``torch.Generator`` on the
 store's device (it cannot reproduce the reference's threefry draws; the
 tests hold it to the same properties instead).
 
-Whether a client wraps depends only on its cursor, its length and the
-batch size, never on data, so the cursors live on the host and a draw
-needs no device-to-host sync.
+The cursors live on the device and the wrap is decided there, as the
+reference decides it in its jitted program: at each local step every
+client draws a fresh permutation, which ``torch.where`` puts in place of
+the old one only in the rows that wrap. A draw thus launches the same
+work whatever the cursors are, has no host sync, and can be captured
+into a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -24,12 +27,12 @@ from repro_torch.device import resolve
 
 
 class SamplerState(NamedTuple):
-    """order: (N, capacity) int64 current epoch permutation per client on
-    the device (positions >= length hold padding, sorted last, never
-    reached within an epoch); pos: (N,) int64 host cursors."""
+    """order: (N, capacity) int64 current epoch permutation per client
+    (positions >= length hold padding, sorted last, never reached within
+    an epoch); pos: (N,) int64 cursors. Both on the store's device."""
 
     order: torch.Tensor
-    pos: np.ndarray
+    pos: torch.Tensor
 
 
 class DeviceShardStore:
@@ -50,45 +53,42 @@ class DeviceShardStore:
         for i, (xi, yi) in enumerate(shards):
             x[i, :len(yi)] = xi
             y[i, :len(yi)] = yi
-        self.lengths = np.asarray(lengths, np.int64)
         self.data = (torch.from_numpy(x).to(self.device),
                      torch.from_numpy(y).to(self.device),
-                     torch.from_numpy(self.lengths).to(self.device))
+                     torch.tensor(lengths, dtype=torch.int64,
+                                  device=self.device))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
-    def _perm(self, rows: np.ndarray) -> torch.Tensor:
-        """Fresh permutations of the first ``length`` slots of ``rows``;
+    def _perm(self) -> torch.Tensor:
+        """Fresh permutations of every client's first ``length`` slots;
         padding slots sort last."""
-        u = torch.rand((len(rows), self.capacity), generator=self.gen,
+        u = torch.rand((self.n, self.capacity), generator=self.gen,
                        device=self.device)
-        lengths = self.data[2][torch.as_tensor(rows, device=self.device)]
         real = (torch.arange(self.capacity, device=self.device)
-                < lengths.unsqueeze(1))
+                < self.data[2].unsqueeze(1))
         u = torch.where(real, u, 2.0)
         return torch.argsort(u, dim=1, stable=True)
 
     def init_state(self) -> SamplerState:
-        return SamplerState(order=self._perm(np.arange(self.n)),
-                            pos=np.zeros(self.n, np.int64))
+        return SamplerState(order=self._perm(),
+                            pos=torch.zeros(self.n, dtype=torch.int64,
+                                            device=self.device))
 
     def draw(self, data, state: SamplerState, H: int):
         """The next H batches per client: (bx (N, H, B, ...), by (N, H, B),
-        new_state)."""
-        x, y, _ = data
-        order, pos = state.order, state.pos.copy()
+        new_state). Each local step draws one permutation per client (N x
+        capacity uniforms and a row sort) and keeps it where the client
+        wraps."""
+        x, y, lengths = data
+        order, pos = state.order, state.pos
         span = torch.arange(self.bs, device=self.device)
         sels = []
         for _ in range(H):
-            wrap = pos + self.bs > self.lengths
-            if wrap.any():
-                rows = np.nonzero(wrap)[0]
-                order = order.clone()
-                order[torch.as_tensor(rows, device=self.device)] = \
-                    self._perm(rows)
-                pos[wrap] = 0
-            start = torch.as_tensor(pos, device=self.device)
-            sels.append(order.gather(1, start.unsqueeze(1) + span))
-            pos += self.bs
+            wrap = pos + self.bs > lengths
+            order = torch.where(wrap.unsqueeze(1), self._perm(), order)
+            pos = torch.where(wrap, 0, pos)
+            sels.append(order.gather(1, pos.unsqueeze(1) + span))
+            pos = pos + self.bs
         sel = torch.stack(sels, dim=1)                       # (N, H, B)
         client = torch.arange(self.n, device=self.device).view(-1, 1, 1)
         return x[client, sel], y[client, sel], SamplerState(order, pos)

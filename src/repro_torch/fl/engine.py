@@ -3,7 +3,9 @@
 MLP (fig3) and the CIFAR CNN (fig5, its BatchNorm statistics held per
 client), full participation, the dense age layout, every selection
 method of ``make_strategy``, the threshold (or sort) candidate report,
-masked compute and the step driver.
+masked compute, and both drivers: ``run`` (a round a step) and
+``run_scanned`` (chunks of rounds, each round on the card one replay of
+a CUDA graph of the round body).
 
 One rAge-k round, all on the engine's device:
 
@@ -21,20 +23,24 @@ One rAge-k round, all on the engine's device:
 
 The other methods replace steps 2-4 by their strategy's ``select_batch``
 on the (N, d) gradients: rTop-k and CAFe take their candidate report
-there (the ``maghist`` kernel, one launch for all clients), top-k and
+there (on the card the same two report kernels), top-k and
 random-k need none, and dense uploads everything (no kernel at all).
 
 Every M rounds the host pulls the (N, d) request counts, runs DBSCAN and
-merges or resets the cluster ages (rAge-k only). The engine updates its
-state in place, round by round; the reference threads it through a pure
-jitted function instead.
+merges or resets the cluster ages (rAge-k only): inline under ``run``,
+on a worker thread under ``run_scanned``. The engine's state is a fixed
+set of buffers that each round updates in place (a graph replays on the
+addresses it captured); the reference threads it through a pure jitted
+function instead.
 
 Options of the reference that this path does not take raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -53,6 +59,7 @@ from repro_torch.device import resolve, strict_fp32
 from repro_torch.fl import client as C
 from repro_torch.fl.schedule import SchedState, make_scheduler
 from repro_torch.fl.server import aggregate_sparse, aggregate_sparse_fused
+from repro_torch.kernels import build
 from repro_torch.models import paper_nets as P
 from repro_torch.optim.optimizers import adam, apply_updates
 
@@ -146,7 +153,7 @@ def member_age_row(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     d = row.shape[0]
     idx = idx.reshape(-1).to(torch.int64)
     out = torch.cat([row + 1, row.new_zeros(1)])
-    out[torch.where((idx >= 0) & (idx < d), idx, d)] = 0
+    out.index_fill_(0, torch.where((idx >= 0) & (idx < d), idx, d), 0)
     return out[:d]
 
 
@@ -179,12 +186,14 @@ def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
     cl = age.cluster_of.to(torch.int64)
     taken = (torch.zeros(age.cluster_age.shape, dtype=torch.bool,
                          device=cands.device) if disjoint else None)
+    # a device scalar: a Python one would be copied up at every write
+    true = torch.ones((), dtype=torch.bool, device=cands.device)
     rows = []
     for i in range(n):
         idx_i = select_member_topk(age.cluster_age, taken, cands[i],
                                    cl[i:i + 1], k=k)
         if disjoint:
-            taken[cl[i:i + 1], idx_i] = True
+            taken.index_put_((cl[i:i + 1], idx_i), true)
         rows.append(idx_i)
     idx = torch.stack(rows)
     cluster_age = age.cluster_age.clone()
@@ -250,13 +259,28 @@ def _recluster_host(freq: np.ndarray, cluster_age: np.ndarray,
     return new_ca, st.cluster_of
 
 
+def _write(dst, src):
+    """Copy a tree of new tensors (tensors, tuples, NamedTuples, dicts) into
+    the buffers of the same tree, in place: the engine's state keeps its
+    addresses, which a captured CUDA graph reads and writes."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for key in dst:
+            _write(dst[key], src[key])
+    else:
+        for a, b in zip(dst, src):
+            if a is not None:
+                _write(a, b)
+
+
 class FederatedEngine:
     """Owns the paper's round loop on one device.
 
     Usage::
 
         engine = FederatedEngine("mlp", shards, test, hp, seed=0)
-        result = engine.run(rounds=200, eval_every=5)
+        result = engine.run_scanned(rounds=200, eval_every=5)
 
     ``kind`` is ``"mlp"`` (Network-1) or ``"cnn"`` (Network-2).
     ``device=None`` means the CUDA card and raises without one;
@@ -265,6 +289,13 @@ class FederatedEngine:
     seeded initial weights, ``state`` (the CNN's BatchNorm statistics,
     ``{"conv{i}": {"mean", "var"}}``) the initial model state; every
     client starts from both.
+
+    Two drivers run the same round body on the same state: :meth:`run`
+    steps eagerly and pulls every round's metrics; :meth:`run_scanned`
+    runs chunks of rounds between the host's stops, on the card each
+    round one replay of a CUDA graph of the body, and pulls a chunk's
+    metrics once. Their results are bitwise equal, and either may follow
+    the other.
     """
 
     def __init__(self, kind: str, shards: list, test: tuple,
@@ -325,7 +356,9 @@ class FederatedEngine:
         self._num_seg = n
         self._max_seg = 1
 
+        # the state every round updates in place (see _write)
         self.g_opt_state = self._g_opt.init(self.g_params)
+        # every client starts a round from the global params: a view
         self.params_s = C.broadcast_global(self.g_params, n)
         self.opt_s = adam(hp.lr).init(self.params_s, batch_dims=1)
         # per-client model state (the CNN's BatchNorm running statistics):
@@ -356,7 +389,28 @@ class FederatedEngine:
                 self._per_client_bytes += hp.r * bytes_per_index(d)
         self.cum_bytes = 0
         self.device_s = 0.0
-        self.recluster_s = 0.0
+
+        # CUDA graphs of the round body, one per packing bound (the
+        # reference's jit cache): key -> (graph, launch tally, outputs);
+        # all in one memory pool, since they replay one at a time
+        self._graphs: dict = {}
+        self._pool = None
+        self._capture_stream = None
+
+        # the every-M recluster: inline under run(), on a worker thread
+        # under run_scanned(), joined before anything reads the labels.
+        # Claims of the in-flight future (and the pool's shutdown) are
+        # serialized: close() may race __del__ or a driver unwinding from
+        # a chunk, and the worker's result is applied exactly once
+        self._recluster_pool: ThreadPoolExecutor | None = None
+        self._recluster_future = None
+        self._recluster_lock = threading.Lock()
+        # a worker failure, re-raised at every later consumer of the
+        # labels (the first raise may be swallowed by __del__)
+        self._recluster_exc: BaseException | None = None
+        self._pinned = None              # host buffers of the snapshot
+        self.recluster_s = 0.0           # host DBSCAN + merge wall
+        self.recluster_wait_s = 0.0      # the part a driver blocked on
 
     @property
     def params(self) -> dict:
@@ -371,21 +425,22 @@ class FederatedEngine:
         seg = None
         if hp.method == "rage_k":
             if self._selection == "segmented":
-                idx, self.age, seg = rage_select_segmented(
+                idx, age, seg = rage_select_segmented(
                     self.age, r=hp.r, k=hp.k, cands=cands, d=d,
                     num_segments=self._num_seg,
                     max_seg=min(self._max_seg, plan.m),
                     disjoint=hp.disjoint_in_cluster)
             else:
-                idx, self.age = rage_select(self.age, k=hp.k, cands=cands,
-                                            disjoint=hp.disjoint_in_cluster)
+                idx, age = rage_select(self.age, k=hp.k, cands=cands,
+                                       disjoint=hp.disjoint_in_cluster)
+            _write(self.age, age)
         elif hp.method == "cafe":
             # per-client cost-and-age selection: cluster_age doubles as the
             # per-client age rows (clusters stay singletons: no recluster
             # on this method) and freq holds the cumulative cost
             idx, _, (ca, cost) = self._strategy.select_batch(
                 G, (self.age.cluster_age, self.age.freq))
-            self.age = self.age._replace(cluster_age=ca, freq=cost)
+            _write((self.age.cluster_age, self.age.freq), (ca, cost))
         elif hp.method == "dense":
             return None, None
         elif hp.method in ("rtop_k", "random_k"):
@@ -405,9 +460,9 @@ class FederatedEngine:
         hp, n, d = self.hp, self.n, self.d
         plan = self._scheduler.plan(self.sched)
         with record_function("local_phase"), strict_fp32():
-            _, self.opt_s, self.state_s, G, cands, losses = \
-                self._local_phase(self.params_s, self.opt_s, self.state_s,
-                                  bx, by)
+            _, opt_s, state_s, G, cands, losses = self._local_phase(
+                self.params_s, self.opt_s, self.state_s, bx, by)
+            _write((self.opt_s, self.state_s), (opt_s, state_s))
 
         with record_function("select"):
             idx, seg = self._select(G, cands, plan)
@@ -433,15 +488,16 @@ class FederatedEngine:
             elif idx is not None:
                 g_sum = aggregate_sparse(idx, vals, d)
         with record_function("global_update"):
-            self.g_params, self.g_opt_state = apply_global(
-                self._g_opt, g_sum, self.g_params, self.g_opt_state)
-            self.params_s = C.broadcast_global(self.g_params, n)
+            # params_s views g_params, so the clients see the new params
+            _write((self.g_params, self.g_opt_state),
+                   apply_global(self._g_opt, g_sum, self.g_params,
+                                self.g_opt_state))
 
         aoi = torch.where(plan.active, 0, self.sched.aoi + 1)
-        self.sched = SchedState(rnd=self.sched.rnd + 1, aoi=aoi)
+        _write(self.sched, SchedState(rnd=self.sched.rnd + 1, aoi=aoi))
         live = torch.zeros(self.age.cluster_age.shape[0], dtype=torch.bool,
-                           device=self.device)
-        live[self.age.cluster_of.to(torch.int64)] = True
+                           device=self.device).index_fill_(
+            0, self.age.cluster_of.to(torch.int64), True)
         ca_live = torch.where(live.unsqueeze(1), self.age.cluster_age, 0)
         return {
             "losses": losses,
@@ -456,50 +512,284 @@ class FederatedEngine:
             "age_peak": ca_live.max(),
         }
 
-    def step(self) -> dict:
-        """Advance one global round. Returns host values: losses (N,),
-        idx (N, k) (None for dense), n_active, aoi_mean, aoi_peak,
-        age_mean, age_peak."""
-        t0 = time.perf_counter()
+    def _round(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The round body both drivers run (and a graph captures): the
+        draw, :meth:`_round_impl`, and the metrics the host reads, packed
+        into two flat device vectors: float32 [losses (N), aoi_mean,
+        age_mean] and int64 [n_active, aoi_peak, age_peak, idx (N * k)
+        (none for dense)]."""
         with record_function("draw"):
-            bx, by, self.samp = self._store.draw(self._data, self.samp,
-                                                 self.hp.H)
+            bx, by, samp = self._store.draw(self._data, self.samp,
+                                            self.hp.H)
+            _write(self.samp, samp)
         m = self._round_impl(bx, by)
         with record_function("metrics"):
-            out = {"losses": m["losses"].cpu().numpy(),
-                   "idx": (m["idx"].cpu().numpy()
-                           if m["idx"] is not None else None),
-                   "n_active": int(m["n_active"]),
-                   "aoi_mean": float(m["aoi_mean"]),
-                   "aoi_peak": int(m["aoi_peak"]),
-                   "age_mean": float(m["age_mean"]),
-                   "age_peak": int(m["age_peak"])}
+            f = torch.cat([m["losses"].to(torch.float32),
+                           torch.stack([m["aoi_mean"], m["age_mean"]])])
+            ints = [torch.stack([m["n_active"].to(torch.int64),
+                                 m["aoi_peak"].to(torch.int64),
+                                 m["age_peak"].to(torch.int64)])]
+            if m["idx"] is not None:
+                ints.append(m["idx"].reshape(-1).to(torch.int64))
+            return f, torch.cat(ints)
+
+    def _row(self, f: np.ndarray, i: np.ndarray) -> dict:
+        """One round's host values from its two metric vectors."""
+        n = self.n
+        return {"losses": f[:n],
+                "idx": (i[3:].reshape(n, -1).astype(np.int32)
+                        if self.hp.method != "dense" else None),
+                "n_active": int(i[0]),
+                "aoi_mean": float(f[n]),
+                "aoi_peak": int(i[1]),
+                "age_mean": float(f[n + 1]),
+                "age_peak": int(i[2])}
+
+    def step(self) -> dict:
+        """Advance one global round, eagerly. Returns host values: losses
+        (N,), idx (N, k) (None for dense), n_active, aoi_mean, aoi_peak,
+        age_mean, age_peak."""
+        self._recluster_join()
+        t0 = time.perf_counter()
+        f, i = self._round()
+        with record_function("metrics"):
+            out = self._row(f.cpu().numpy(), i.cpu().numpy())
         self.device_s += time.perf_counter() - t0
+        self._bookkeep(out["n_active"])
+        return out
+
+    def _bookkeep(self, n_active: int):
+        """Per-round host accounting shared by both drivers: the round
+        count, the uplink of the clients that took part, and the every-M
+        recluster (rAge-k)."""
         self.round_idx += 1
-        self.cum_bytes += self._per_client_bytes * out["n_active"]
+        self.cum_bytes += self._per_client_bytes * n_active
         if self.hp.method == "rage_k" and self.round_idx % self.hp.M == 0:
             with record_function("recluster"):
                 self._recluster()
+
+    # ------------------------------------------------------------------
+    # the chunked driver: a CUDA graph of the round, replayed
+    # ------------------------------------------------------------------
+    def _graph_key(self):
+        """What a graph of the round bakes in that can change: the
+        segmented packing bounds (rage_k segmented), else nothing."""
+        if self.hp.method == "rage_k" and self._selection == "segmented":
+            return (self._num_seg, min(self._max_seg, self.n))
+        return None
+
+    def _capture(self, key):
+        """Run one round eagerly on the capture stream (a real round, which
+        warms up the libraries' handles, workspaces and algorithms), then
+        capture the round body as a CUDA graph for ``key``, with both
+        device generators registered so that each replay draws anew, and
+        the kernels' launches counted into the graph's tally. Returns the
+        eager round's metric vectors. A failed capture raises."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            out = self._round()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        for gen in (self._store.gen, self._gen):
+            graph.register_generator_state(gen)
+        with build.capturing() as tally, torch.cuda.graph(
+                graph, pool=self._pool, stream=stream):
+            outs = self._round()
+        self._graphs[key] = (graph, dict(tally), outs)
         return out
 
+    def _chunk(self, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``rounds`` rounds with no host stop between them. On the card
+        each is one replay of the graph for the current packing bounds
+        (captured at its first use); on the CPU the same body runs
+        eagerly. Returns the rounds' metric vectors stacked on the device,
+        (rounds, F) float32 and (rounds, I) int64."""
+        self._recluster_join()
+        key = self._graph_key()
+        stacks = None
+        for j in range(rounds):
+            if self.device.type != "cuda":
+                f, i = self._round()
+            elif key not in self._graphs:
+                f, i = self._capture(key)
+            else:
+                graph, tally, (f, i) = self._graphs[key]
+                graph.replay()
+                build.replayed(tally)
+            if stacks is None:
+                stacks = (f.new_empty((rounds, f.numel())),
+                          i.new_empty((rounds, i.numel())))
+            stacks[0][j].copy_(f)
+            stacks[1][j].copy_(i)
+        return stacks
+
+    def _next_stop(self, end: int, eval_every: int, heatmap_at) -> int:
+        """First round after ``round_idx`` where the host must step in:
+        the recluster (every M, rage_k), an eval, a heatmap, or the end."""
+        t = self.round_idx
+        stops = [end, t + eval_every - t % eval_every]
+        if self.hp.method == "rage_k":
+            stops.append(t + self.hp.M - t % self.hp.M)
+        stops.extend(h for h in heatmap_at if h > t)
+        return min(stops)
+
+    def run_scanned(self, rounds: int, *, eval_every: int = 5,
+                    heatmap_at=(), verbose: bool = False,
+                    checkpointer=None, ckpt_every: int = 0,
+                    result: FLResult | None = None) -> FLResult:
+        """Drive ``rounds`` in chunks: the same rounds as :meth:`run`
+        (bitwise), but the host touches the device once a chunk. Chunks
+        end at the host's stops (the every-M recluster, eval, heatmap);
+        the chunk's stacked metrics come down in one pull, and a
+        recluster due at its end runs on a worker thread while the host
+        drains them and evaluates."""
+        if checkpointer is not None or ckpt_every:
+            raise _todo("checkpointer=", "item 13: resilience")
+        t0 = time.time()
+        res = result if result is not None else FLResult()
+        end = self.round_idx + rounds
+        while self.round_idx < end:
+            T = self._next_stop(end, eval_every, heatmap_at) - self.round_idx
+            td = time.perf_counter()
+            fs, ints = self._chunk(T)
+            # chunks end at the recluster rounds, so only the last round
+            # of a chunk can trigger one: snapshot and submit it now, so
+            # that it overlaps the pull and the bookkeeping below
+            if (self.hp.method == "rage_k"
+                    and (self.round_idx + T) % self.hp.M == 0):
+                self._recluster_submit()
+            fs, ints = fs.cpu().numpy(), ints.cpu().numpy()
+            self.device_s += time.perf_counter() - td
+            for j in range(T):
+                row = self._row(fs[j], ints[j])
+                self._bookkeep(row["n_active"])
+                self._track(res, row)
+            self._record(res, row["losses"], end=end, eval_every=eval_every,
+                         heatmap_at=heatmap_at, verbose=verbose)
+        res.wall_s = time.time() - t0
+        return res
+
+    # ------------------------------------------------------------------
+    # the every-M recluster
+    # ------------------------------------------------------------------
+    def _snapshot(self):
+        """Host copies of what a recluster reads (freq, cluster_age,
+        cluster_of), taken on the calling thread, so that no work enqueued
+        later, which updates them in place, reaches them: on the card
+        non-blocking copies into pinned buffers and an event that marks
+        them done. Returns (arrays, event or None)."""
+        src = (self.age.freq, self.age.cluster_age, self.age.cluster_of)
+        if self.device.type != "cuda":
+            return [t.numpy().copy() for t in src], None
+        if self._pinned is None:
+            self._pinned = [torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True) for t in src]
+        for h, t in zip(self._pinned, src):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return [h.numpy() for h in self._pinned], ready
+
+    def _recluster_work(self):
+        """The recluster's host work on a snapshot, as a callable for this
+        thread or the worker: returns ((new cluster_age, labels), s)."""
+        (freq, ca, cl), ready = self._snapshot()
+        eps, min_pts = self.hp.eps, self.hp.min_pts
+
+        def work():
+            t0 = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
+            return (_recluster_host(freq, ca, cl, eps, min_pts),
+                    time.perf_counter() - t0)
+        return work
+
+    def _recluster_submit(self):
+        """Start the every-M recluster on the worker thread (the chunked
+        driver); :meth:`_recluster_join` applies it before anything reads
+        the labels. Bitwise the inline path: the same snapshot, the same
+        numpy math."""
+        if self._recluster_future is not None:
+            return
+        if self._recluster_pool is None:
+            self._recluster_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="recluster")
+        self._recluster_future = self._recluster_pool.submit(
+            self._recluster_work())
+
     def _recluster(self):
-        """The every-M host round trip: request counts and cluster rows
-        come down, DBSCAN + merge/reset run on the host, rows and labels
-        go back up."""
+        """The every-M recluster. With a submission in flight (the chunked
+        driver) nothing happens here: the first consumer of the new labels
+        joins it. Else it runs inline, the host blocked throughout."""
+        if self._recluster_future is not None:
+            return
+        (new_ca, labels), dt = self._recluster_work()()
+        self.recluster_s += dt
+        self.recluster_wait_s += dt
+        self._apply_recluster(new_ca, labels)
+
+    def _recluster_join(self):
+        """Block on, and apply, the recluster in flight, if any. Every
+        reader of the labels comes through here. The future is claimed
+        under the lock, so concurrent callers apply it once; a past worker
+        failure raises here at every later call."""
+        with self._recluster_lock:
+            fut, self._recluster_future = self._recluster_future, None
+        if fut is None:
+            if self._recluster_exc is not None:
+                raise RuntimeError(
+                    "recluster worker failed; cluster assignments are "
+                    "stale") from self._recluster_exc
+            return
         t0 = time.perf_counter()
-        new_ca, labels = _recluster_host(
-            self.age.freq.cpu().numpy(), self.age.cluster_age.cpu().numpy(),
-            self.age.cluster_of.cpu().numpy(), self.hp.eps, self.hp.min_pts)
-        self.age = self.age._replace(
-            cluster_age=torch.from_numpy(new_ca).to(self.device),
-            cluster_of=torch.from_numpy(labels.astype(np.int32)).to(
-                self.device))
+        try:
+            (new_ca, labels), work_s = fut.result()
+        except BaseException as e:
+            self._recluster_exc = e
+            raise
+        self.recluster_wait_s += time.perf_counter() - t0
+        self.recluster_s += work_s
+        self._apply_recluster(new_ca, labels)
+
+    def _apply_recluster(self, new_ca: np.ndarray, labels: np.ndarray):
+        """DBSCAN's rows and labels into the age state's own buffers; the
+        packing bounds from the host labels."""
+        self.age.cluster_age.copy_(torch.from_numpy(new_ca))
+        self.age.cluster_of.copy_(torch.from_numpy(labels.astype(np.int32)))
         self._num_seg = int(labels.max()) + 1
         self._max_seg = int(np.bincount(labels).max())
-        self.recluster_s += time.perf_counter() - t0
+
+    @property
+    def recluster_hidden_s(self) -> float:
+        """Host clustering wall hidden behind the chunk-boundary work."""
+        return max(0.0, self.recluster_s - self.recluster_wait_s)
+
+    def close(self):
+        """Join any recluster in flight and release the worker thread.
+        Idempotent; the engine stays usable (a later chunked recluster
+        starts a new worker). A worker failure re-raises here too, after
+        the thread is released."""
+        try:
+            self._recluster_join()
+        finally:
+            with self._recluster_lock:
+                pool, self._recluster_pool = self._recluster_pool, None
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     @property
     def cluster_of(self) -> np.ndarray:
+        self._recluster_join()
         return self.age.cluster_of.cpu().numpy().astype(np.int64)
 
     @property
@@ -507,6 +797,7 @@ class FederatedEngine:
         """The cumulative (N, d) request-frequency matrix (eq.-3 inputs).
         CAFe's cost rows stand in for it, as the reference stores them
         there; methods that never request return zeros."""
+        self._recluster_join()
         return self.age.freq.cpu().numpy()
 
     @torch.no_grad()
@@ -524,31 +815,52 @@ class FederatedEngine:
         self.device_s += time.perf_counter() - t0
         return acc
 
+    # ------------------------------------------------------------------
+    # what both drivers record
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _track(res: FLResult, row: dict) -> None:
+        """One round's per-round columns: requested indices and the
+        participation and age metrics."""
+        res.requested.append(row["idx"])
+        for key in ("n_active", "aoi_mean", "aoi_peak", "age_mean",
+                    "age_peak"):
+            getattr(res, key).append(row[key])
+
+    def _record(self, res: FLResult, losses, *, end: int, eval_every: int,
+                heatmap_at, verbose: bool) -> None:
+        """Eval, record and heatmap at the current round: the shared tail
+        of both drivers (after each step, at each chunk's end; chunks end
+        on the same rounds). ``losses`` is this round's (N,) vector."""
+        t = self.round_idx
+        if t % eval_every == 0 or t == end:
+            acc = self.eval_acc()
+            loss = float(np.nanmean(losses))
+            res.rounds.append(t)
+            res.loss.append(loss)
+            res.acc.append(acc)
+            res.uplink_bytes.append(self.cum_bytes)
+            res.cluster_labels.append(self.cluster_of)
+            if verbose:
+                print(f"[{self.hp.method}] round {t:4d} "
+                      f"loss={loss:.4f} acc={acc:.4f} "
+                      f"upl={self.cum_bytes / 2**20:.2f}MB")
+        if t in heatmap_at:
+            res.heatmaps[t] = connectivity_matrix(self.freq_matrix)
+
     def run(self, rounds: int, *, eval_every: int = 5, heatmap_at=(),
-            verbose: bool = False) -> FLResult:
+            verbose: bool = False, checkpointer=None, ckpt_every: int = 0,
+            result: FLResult | None = None) -> FLResult:
+        """Drive ``rounds`` through :meth:`step`, one host pull a round."""
+        if checkpointer is not None or ckpt_every:
+            raise _todo("checkpointer=", "item 13: resilience")
         t0 = time.time()
-        res = FLResult()
+        res = result if result is not None else FLResult()
         end = self.round_idx + rounds
         while self.round_idx < end:
             m = self.step()
-            res.requested.append(m["idx"])
-            for key in ("n_active", "aoi_mean", "aoi_peak", "age_mean",
-                        "age_peak"):
-                getattr(res, key).append(m[key])
-            t = self.round_idx
-            if t % eval_every == 0 or t == end:
-                acc = self.eval_acc()
-                loss = float(np.nanmean(m["losses"]))
-                res.rounds.append(t)
-                res.loss.append(loss)
-                res.acc.append(acc)
-                res.uplink_bytes.append(self.cum_bytes)
-                res.cluster_labels.append(self.cluster_of)
-                if verbose:
-                    print(f"[{self.hp.method}] round {t:4d} "
-                          f"loss={loss:.4f} acc={acc:.4f} "
-                          f"upl={self.cum_bytes / 2**20:.2f}MB")
-            if t in heatmap_at:
-                res.heatmaps[t] = connectivity_matrix(self.freq_matrix)
+            self._track(res, m)
+            self._record(res, m["losses"], end=end, eval_every=eval_every,
+                         heatmap_at=heatmap_at, verbose=verbose)
         res.wall_s = time.time() - t0
         return res

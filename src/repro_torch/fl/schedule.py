@@ -27,16 +27,17 @@ class RoundPlan(NamedTuple):
 
 
 class SchedState(NamedTuple):
-    """Scheduler state: the round counter and the client-level AoI
-    (rounds since the PS last heard from each client)."""
+    """Scheduler state on the device: the round counter (an int32
+    scalar) and the client-level AoI (rounds since the PS last heard from
+    each client)."""
 
-    rnd: int
+    rnd: torch.Tensor
     aoi: torch.Tensor
 
     @classmethod
     def create(cls, n: int, device) -> "SchedState":
-        return cls(rnd=0, aoi=torch.zeros(n, dtype=torch.int32,
-                                          device=device))
+        return cls(rnd=torch.zeros((), dtype=torch.int32, device=device),
+                   aoi=torch.zeros(n, dtype=torch.int32, device=device))
 
 
 @dataclass(frozen=True)

@@ -11,10 +11,14 @@ launch builds.
 Each C entry takes its pointers and the stream as ``void*``, launches on
 that stream and returns ``cudaGetLastError()``; :func:`call` raises if
 it is not 0. ``LAUNCHES`` counts each kernel's launches (a plain
-integer per kernel, bumped only where the kernel is launched).
+integer per kernel, bumped only where the kernel is launched). While a
+CUDA graph is captured nothing runs, so a launch made then counts into
+the graph's own tally (:func:`capturing`), and :func:`replayed` adds the
+tally to ``LAUNCHES`` at each replay of that graph.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,12 +51,33 @@ SIGNATURES = {
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lib = None
+_tally = None          # the launch tally of the graph being captured
 build_log = ""
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the launches made inside into a tally of their own (the
+    graph being captured runs none of them) and yield it."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a launch tally is already open")
+    _tally = {name: 0 for name in SIGNATURES}
+    try:
+        yield _tally
+    finally:
+        _tally = None
+
+
+def replayed(tally: dict):
+    """One replay of a graph whose captured launches are ``tally``."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -122,14 +147,22 @@ def library() -> ctypes.CDLL:
 
 def call(name: str, *args):
     """Launch C entry ``name`` on the current stream; raise on a CUDA error
-    and count the launch."""
+    and count the launch: in ``LAUNCHES``, or, while the stream is being
+    captured into a graph, in that graph's tally."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
-    LAUNCHES[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        if _tally is None:
+            raise RuntimeError(f"{name} was captured into a graph outside "
+                               "build.capturing(): its replays would not "
+                               "count")
+        _tally[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def require_cuda(name: str, *tensors: torch.Tensor):
