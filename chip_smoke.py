@@ -19,6 +19,9 @@ the last line:
    ``segmented_age_topk`` at the fig3 and CIFAR selection shapes and at
    clusters past one block (S 156 and 256 at fig3's r and k, CIFAR's six
    clients in one cluster); ``decode_attention`` at head dims 32 to 256;
+   the three FL kernels on a partial round's inputs: the report on m = 2
+   gathered rows, the selection on partial packings with a cluster that
+   has no active member, the aggregation with sentinel rows;
 4. parity: one fig3 round on the card against the same round on the CPU
    (the plain versions) from the same params and batches, for rAge-k
    (segmented and scan), CAFe, top-k, dense and rTop-k;
@@ -59,6 +62,25 @@ the last line:
    against 4 stepwise under
    ``device.deterministic()`` bitwise, the (1, 6) one-cluster graph, and
    the rate at H 10, the two drivers in turns;
+6e. partial parity: one fig3 round on the card against the CPU from
+   the same params, batches and plan (handed to both; a uniform m 2
+   plan and a deadline plan), gathered and masked, for rAge-k
+   (segmented and scan), rTop-k, CAFe and dense, and rAge-k with error
+   feedback;
+6f. partial slice: fig3 at the paper's hyper-parameters, 20 rAge-k
+   rounds each under uniform m 2 and aoi m 2 (gathered) and deadline
+   1.0 (masked), and the ablation's rAge-k with error feedback, each
+   through ``run`` and ``run_scanned``, bitwise equal; n_active, the
+   aoi peak, the deadline's staleness discipline, every round's
+   launches, a chunk with no host sync, the labels at round 20;
+6g. compute plane: ``engine_bench``'s 32 clients of 100 samples,
+   uniform m 32, 8 and 2, gathered and masked, chunked, in turns: ms
+   and device-busy ms a round; gathered against masked from one seed;
+6h. fig5 partial (after 6d): Network-2 under uniform m 2 at H 10,
+   gathered and masked through ``run_scanned`` in turns (ms a round, a
+   local step, the busy share), one gathered round card == CPU at
+   batch 32, H 1, and rAge-k with error feedback chunked == stepwise
+   under ``device.deterministic()``;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -289,6 +311,8 @@ def phase_kernels(torch, dev):
     out.append(segmented_check(torch, dev, gen))
     out.append(sparse_aggregate_check(torch, dev, gen))
     out.append(decode_attention_check(torch, dev, gen))
+    for name, recs in partial_kernels_check(torch, dev, gen).items():
+        next(k for k in out if k["name"] == name)["partial"] = recs
     for k in out:
         say(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
@@ -1224,7 +1248,8 @@ LIB_KERNELS = {"block_counts_kernel", "row_sum_kernel", "report_kernel",
 
 def same_run(torch, ea, ra, eb, rb) -> list:
     """What differs, bitwise, between two engines' runs: the FLResult
-    columns and every buffer of the engine state. Empty when equal."""
+    columns and every buffer of the engine state (the error-feedback
+    memory too). Empty when equal."""
     import numpy as np
     from repro_torch.fl import client as C
 
@@ -1250,13 +1275,17 @@ def same_run(torch, ea, ra, eb, rb) -> list:
                 **e.age._asdict(), **e.samp._asdict(), **e.sched._asdict()}
     sa, sb = state(ea), state(eb)
     bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if (ea.ef_mem is None) != (eb.ef_mem is None) or (
+            ea.ef_mem is not None and not torch.equal(ea.ef_mem, eb.ef_mem)):
+        bad.append("ef_mem")
     return bad
 
 
-def drive_chunked(torch, eng, rounds: int, path, eval_every: int):
-    """``eng.run_scanned(rounds)`` with every launch count set to 0 just
-    before: the counts read just after must be ``rounds`` times the
-    kernels of ``PER_ROUND[path]`` (eager warm-up rounds counted as they
+def drive_chunked(torch, eng, rounds: int, path, eval_every: int,
+                  driver: str = "run_scanned"):
+    """``eng.run_scanned(rounds)`` (or ``driver``) with every launch count
+    set to 0 just before: the counts read just after must be ``rounds``
+    times the kernels of ``PER_ROUND[path]`` (eager rounds counted as they
     launch, replays by their graph's tally), and each graph's tally
     exactly one round's kernels. Returns (counts, result, host seconds)."""
     import numpy as np
@@ -1265,7 +1294,7 @@ def drive_chunked(torch, eng, rounds: int, path, eval_every: int):
     want = {k: PER_ROUND[path].get(k, 0) for k in build.LAUNCHES}
     build.reset_launches()
     t0 = time.perf_counter()
-    res = eng.run_scanned(rounds, eval_every=eval_every)
+    res = getattr(eng, driver)(rounds, eval_every=eval_every)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -1295,7 +1324,11 @@ def sync_free_chunk(torch, eng, rounds: int):
         fs, ints = eng._chunk(rounds)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if fs.shape[0] != rounds or not torch.isfinite(fs).all():
+    # losses are NaN outside a partial round: each round needs a finite
+    # one, and nothing may be infinite
+    if (fs.shape[0] != rounds or torch.isinf(fs).any()
+            or not fs[:, :eng.n].isfinite().any(dim=1).all()
+            or not fs[:, eng.n:].isfinite().all()):
         raise AssertionError("a replayed chunk gave non-finite metrics")
 
 
@@ -1582,6 +1615,556 @@ def phase_cifar_chunked(torch, shards, test, profile: bool):
     engines["C"].run_scanned(1, eval_every=1)
     _rates(torch, engines, 10, "SC", f"fig5 H {hp.H}", 3 if profile else 0)
     for e in engines.values():
+        e.close()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the participation and compute planes and error feedback
+# ---------------------------------------------------------------------------
+
+# the three FL kernels on a partial round's inputs: the report on the m = 2
+# gathered rows at fig3 and fig5; the selection on partial packings (fig3
+# after the first recluster, fig5 after its first); the aggregation with
+# half of the clients' rows at the sentinel d
+PARTIAL_REPORT = [(2, 39_760, 75), (2, 2_515_338, 2500)]
+PARTIAL_SEG = [(5, 2, 75, 10), (3, 2, 2500, 100)]
+PARTIAL_SA = [(10, 10, 39_760), (6, 100, 2_515_338)]
+# the fig3 participation slice: 20 rounds of each at the paper's
+# hyper-parameters (schedule, participation m, deadline s, compute)
+PARTIAL_FIG3 = [("uniform", 2, 0.0, "gathered"), ("aoi", 2, 0.0, "gathered"),
+                ("deadline", 0, 1.0, "masked")]
+# benchmarks/ablation.py's rAge-k with error feedback (full participation)
+ABLATION_EF = dict(r=75, k=10, H=4, M=20, lr=2e-3, batch_size=64)
+# benchmarks/engine_bench.py::_active_compute: 32 clients of 100 samples,
+# rAge-k r 75, k 10, H 4, batch 32, lr 2e-3, uniform m of {32, 8, 2}
+COMPUTE_PLANE = dict(r=75, k=10, H=4, M=1000, lr=2e-3, batch_size=32)
+COMPUTE_M = (32, 8, 2)
+# fig5 partial: uniform m 2 of the 6 clients at H 10 (M past the run)
+FIG5_PARTIAL = dict(H=10, M=1000, schedule="uniform", participation_m=2)
+
+
+def partial_kernels_check(torch, dev, gen) -> dict:
+    """The three FL kernels on a partial round's inputs against their
+    plain versions: the report on the m gathered rows (``PARTIAL_REPORT``)
+    card == CPU exactly, on rows with the ``SPECIAL`` values and on
+    ``torch.randn`` rows, beside ``torch.topk``; ``segmented_age_topk`` on
+    partial packings (``segment_pack`` with an active mask; cluster 0 has
+    no active member, so its slots are all invalid and read the clipped
+    row N - 1) exactly, with and without ``disjoint``, int64 and int32
+    candidates; ``sparse_aggregate`` with half of the rows at the sentinel
+    d and zero values, one row's values halved (a stale arrival), bitwise
+    the upload-order sum. Device times at each shape beside the bound.
+    Returns {kernel name: [records]}."""
+    from repro_torch.core.strategies import segment_pack
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import report as RP
+    from repro_torch.kernels import segmented_topk as ST
+    from repro_torch.kernels import sparse_aggregate as SA
+
+    out = {"threshold_topk_batch": [], "segmented_age_topk": [],
+           "sparse_aggregate": []}
+    for n, d, r in PARTIAL_REPORT:
+        for G in (grads(torch, n, d, gen, dev),
+                  torch.randn((n, d), generator=gen, device=dev)):
+            if not torch.equal(ops.threshold_topk_batch(G, r).cpu(),
+                               ops.threshold_topk_batch(G.cpu(), r)):
+                raise AssertionError(f"the report differs on gathered rows "
+                                     f"{(n, d)}, r {r}")
+        b, by = bound(4 * n * d + 4 * n * r, n * d)
+        t = dict(n=n, d=d, r=r,
+                 ms=device_ms(lambda: ops.threshold_topk_batch(G, r)),
+                 plain_ms=device_ms(
+                     lambda: RP.threshold_topk_batch_plain(G, r)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=device_ms(lambda: torch.topk(G.abs(), r, dim=1)))
+        say(f"  partial: threshold_topk_batch on the m={n} gathered rows "
+            f"d={d} r={r}: kernels {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f}, torch.topk {t['library_ms']:.4f}, bound "
+            f"{b:.6f} ({by})")
+        out["threshold_topk_batch"].append(t)
+    for C, S, r, k in PARTIAL_SEG:
+        n = C * S
+        cluster_of = torch.arange(n, device=dev) // S
+        active = torch.rand(n, generator=gen, device=dev) < 0.5
+        active[:S] = False
+        active[S] = True
+        members = segment_pack(cluster_of, C, S, active)
+        valid = members < n
+        cands = torch.stack([torch.randperm(3 * r, generator=gen,
+                                            device=dev)[:r]
+                             for _ in range(n)])
+        cand = cands[members.clamp(max=n - 1).long()]
+        age = torch.randint(0, 4, (C, S, r), generator=gen,
+                            device=dev).int()
+        for c in (cand, cand.int()):
+            for disjoint in (True, False):
+                got = ST.segmented_age_topk(c, age, valid, k,
+                                            disjoint=disjoint)
+                want = ST.segmented_age_topk_plain(c, age, valid, k,
+                                                   disjoint=disjoint)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"segmented_age_topk differs on a "
+                                         f"partial packing {(C, S, r, k)}")
+        b, by = bound(4 * (2 * C * S * r + C * S + C * S * k),
+                      C * S * k * r)
+        t = dict(C=C, S=S, r=r, k=k, valid=int(valid.sum()),
+                 ms=device_ms(lambda: ST.segmented_age_topk(cand, age, valid,
+                                                            k)),
+                 plain_ms=device_ms(lambda: ST.segmented_age_topk_plain(
+                     cand, age, valid, k)),
+                 bound_ms=b, bound_by=by, library_ms=None)
+        say(f"  partial: segmented_age_topk C={C} S={S} r={r} k={k} with "
+            f"{t['valid']} valid members (cluster 0 none): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound {b:.7f} "
+            f"({by})")
+        out["segmented_age_topk"].append(t)
+    for n, k, d in PARTIAL_SA:
+        idx = torch.stack([torch.randperm(d, generator=gen, device=dev)[:k]
+                           for _ in range(n)]).int()
+        vals = torch.randn((n, k), generator=gen, device=dev)
+        vals[1] *= 0.5
+        idx[n // 2:] = d
+        vals[n // 2:] = 0.0
+        idx, vals = idx.reshape(-1), vals.reshape(-1)
+        age = torch.randint(0, 30, (d,), generator=gen, device=dev).int()
+        dense, new_age = SA.sparse_aggregate(idx, vals, age)
+        if not (torch.equal(dense.cpu(),
+                            _upload_order_sum(torch, idx, vals, d))
+                and torch.equal(new_age,
+                                SA.sparse_aggregate_plain(idx, vals,
+                                                          age)[1])):
+            raise AssertionError(f"sparse_aggregate differs on sentinel rows "
+                                 f"{(n, k, d)}")
+        idx64 = idx.long()
+        b, by = bound(8 * n * k + 12 * d, n * k)
+        t = dict(nk=n * k, d=d, sentinel=n // 2 * k,
+                 ms=device_ms(lambda: SA.sparse_aggregate(idx, vals, age)),
+                 plain_ms=device_ms(
+                     lambda: SA.sparse_aggregate_plain(idx, vals, age)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=device_ms(lambda: torch.zeros(
+                     d + 1, device=dev).index_add_(
+                     0, idx64.clamp(max=d), vals)))
+        say(f"  partial: sparse_aggregate NK={n * k} ({n // 2} of {n} rows "
+            f"at the sentinel) d={d}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f}, index_add_ {t['library_ms']:.4f}, bound "
+            f"{b:.6f} ({by})")
+        out["sparse_aggregate"].append(t)
+    return out
+
+
+def _plan_to(plan, dev):
+    from repro_torch.fl.schedule import RoundPlan
+    return RoundPlan(*(t.to(dev) for t in plan[:3]), plan.m)
+
+
+def _partial_round(torch, card, cpu, plan):
+    """One round of ``card`` and ``cpu`` from the same batches and the
+    handed-in ``plan`` (gathered: the active rows, ``draw_gathered``).
+    Returns the two rounds' tensors."""
+    act_idx = (card._compact(plan.active)
+               if card._compute == "gathered" else None)
+    if act_idx is not None:
+        bx, by, _ = card._store.draw_gathered(card._data, card.samp,
+                                              card.hp.H, act_idx)
+    else:
+        bx, by, _ = card._store.draw(card._data, card.samp, card.hp.H)
+    mc = card._round_impl(bx, by, plan)
+    mh = cpu._round_impl(bx.cpu(), by.cpu(), _plan_to(plan, "cpu"))
+    torch.cuda.synchronize()
+    return mc, mh
+
+
+def phase_partial_parity(torch, dev, shards, test):
+    """One fig3 round on the card and on the CPU from the same params,
+    batches and plan (handed to both): a uniform m 2 plan (the card's
+    ``UniformM`` at round 0) and a deadline plan (the card's ``Deadline``
+    at round 3), each gathered and masked, for rAge-k (segmented and
+    scan), rTop-k, CAFe and dense; and rAge-k with error feedback.
+    Indices, ages and request counts exactly (rTop-k: the reports equal);
+    losses (NaN outside the round), the aggregate, the new params and the
+    ef memory within ``phase_parity``'s rtol=1e-4, atol=1e-6."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core.strategies import topr_candidates
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.fl.schedule import SchedState, make_scheduler
+
+    tol = dict(rtol=1e-4, atol=1e-6)
+    n = len(shards)
+    plans = {}
+    for name, schedule, rnd in (("uniform m 2", "uniform", 0),
+                                ("deadline 1.0", "deadline", 3)):
+        sched = make_scheduler(schedule, n, participation_m=2,
+                               deadline_s=1.0, seed=41, device=dev)
+        st = SchedState.create(n, 23, dev)._replace(
+            rnd=torch.tensor(rnd, dtype=torch.int32, device=dev))
+        plans[name] = (schedule, sched.plan(st))
+    cases = [(m, sel, name, compute, False)
+             for name in plans for compute in ("gathered", "masked")
+             for m, sel in (("rage_k", "segmented"), ("rage_k", "scan"),
+                            ("rtop_k", "segmented"), ("cafe", "segmented"),
+                            ("dense", "segmented"))]
+    cases += [("rage_k", "segmented", "uniform m 2", "gathered", True)]
+    for method, selection, pname, compute, ef in cases:
+        schedule, plan = plans[pname]
+        hp = RAgeKConfig(**FIG3, method=method, schedule=schedule,
+                         participation_m=2, deadline_s=1.0)
+        card, cpu = (FederatedEngine("mlp", shards, test, hp, seed=0,
+                                     device=where, selection=selection,
+                                     compute=compute, ef=ef)
+                     for where in (dev, "cpu"))
+        mc, mh = _partial_round(torch, card, cpu, plan)
+        name = (f"{method}/{selection} {pname} {compute}"
+                + (" ef" if ef else ""))
+        torch.testing.assert_close(mc["losses"].cpu(), mh["losses"],
+                                   equal_nan=True, **tol)
+        if method == "rtop_k":
+            reports = [topr_candidates(m["G"], hp.r, hp.candidates).cpu()
+                       for m in (mc, mh)]
+            if not torch.equal(*reports):
+                raise AssertionError(f"{name}: candidate reports differ")
+        elif method == "dense":
+            if mc["idx"] is not None or mh["idx"] is not None:
+                raise AssertionError(f"{name}: dense requested indices")
+        elif not torch.equal(mc["idx"].cpu(), mh["idx"]):
+            raise AssertionError(f"{name}: requested indices differ")
+        if method != "rtop_k":
+            torch.testing.assert_close(mc["g_sum"].cpu(), mh["g_sum"], **tol)
+            torch.testing.assert_close(card.g_params.cpu(), cpu.g_params,
+                                       **tol)
+        if ef:
+            torch.testing.assert_close(card.ef_mem.cpu(), cpu.ef_mem, **tol)
+        if not (torch.equal(card.age.cluster_age.cpu(), cpu.age.cluster_age)
+                and torch.equal(card.age.freq.cpu(), cpu.age.freq)):
+            raise AssertionError(f"{name}: ages or request counts differ")
+        err = float((mc["g_sum"].cpu() - mh["g_sum"]).abs().max())
+        say(f"partial parity: one fig3 {name} round card == CPU "
+            f"({int(plan.active.sum())} active, "
+            f"{int((plan.staleness > 0).sum())} stale; "
+            + ("reports equal" if method == "rtop_k"
+               else "indices, ages, counts exact")
+            + f"; max |g_sum diff| {err:.3e})")
+
+
+def _deadline_discipline(torch, eng, rounds: int, n_active) -> str:
+    """The deadline's staleness discipline over ``rounds`` rounds, from
+    the engine's scheduler recomputing each round's times: a client late
+    at t - 1 arrives at t, fresh if on time, else stale at weight
+    ``discount``; none stale at round 0; the run's participant counts
+    those of the plans. Returns a summary."""
+    sched, st = eng._scheduler, eng.sched
+    late_prev = None
+    stale_total = 0
+    for t in range(rounds):
+        rnd = torch.tensor(t, dtype=torch.int32, device=eng.device)
+        plan = sched.plan(st._replace(rnd=rnd))
+        late = sched._late(st.seed, rnd)
+        stale = plan.staleness > 0
+        want_stale = (late_prev & late if late_prev is not None
+                      else torch.zeros_like(late))
+        if not (torch.equal(stale, want_stale)
+                and torch.equal(plan.active, ~late | want_stale)
+                and bool((plan.weight[stale] == sched.discount).all())
+                and bool((plan.weight[~stale] == 1.0).all())
+                and int(plan.active.sum()) == n_active[t]):
+            raise AssertionError(f"deadline round {t + 1}: staleness "
+                                 f"discipline broken")
+        stale_total += int(stale.sum())
+        late_prev = late
+    return (f"{stale_total} stale arrivals over {rounds} rounds, each late "
+            f"twice running, at weight {sched.discount}")
+
+
+def phase_partial_slice(torch, shards, test):
+    """The participation plane at fig3's paper hyper-parameters
+    (``PARTIAL_FIG3``): 20 rAge-k rounds each under uniform m 2
+    (gathered), aoi m 2 (gathered) and deadline 1.0 (masked), through
+    ``run`` and ``run_scanned``, bitwise equal (FLResult, every state
+    buffer), every round launching exactly rAge-k's kernels (replays by
+    their graph's tally); n_active 2 every round under uniform and aoi,
+    the aoi peak at most ceil(N/m) = 5, the deadline's staleness
+    discipline; a chunk of replays with no host sync. Then the
+    ablation's rAge-k with error feedback (``ABLATION_EF``, full
+    participation), 20 rounds each way, bitwise. Then the rates of the
+    uniform and deadline runs, the two drivers in turns as
+    ``phase_rates_fig3`` takes them. Returns the launch counts of the
+    checked runs."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    total = {}
+    path = ("rage_k", "segmented")
+    runs = [(f"{s} m {m}" if m else f"{s} {dl}",
+             RAgeKConfig(**FIG3, schedule=s, participation_m=m,
+                         deadline_s=dl), {"compute": c})
+            for s, m, dl, c in PARTIAL_FIG3]
+    runs.append(("ablation ef", RAgeKConfig(**ABLATION_EF), {"ef": True}))
+    for name, hp, kw in runs:
+        out = []
+        for driver in ("run", "run_scanned"):
+            eng = FederatedEngine("mlp", shards, test, hp, seed=0, **kw)
+            launches, res, dt = drive_chunked(torch, eng, 20, path, 20,
+                                              driver=driver)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            out.append((eng, res, dt))
+        (es, rs, ts), (ec, rc, tc) = out
+        bad = same_run(torch, es, rs, ec, rc)
+        if bad:
+            raise AssertionError(f"partial {name}: run_scanned differs from "
+                                 f"run in {bad}")
+        extra = ""
+        if hp.schedule in ("uniform", "aoi") and rs.n_active != [2] * 20:
+            raise AssertionError(f"partial {name}: n_active {rs.n_active}")
+        if hp.schedule == "aoi" and max(rs.aoi_peak) > 5:
+            raise AssertionError(f"partial {name}: aoi peak "
+                                 f"{max(rs.aoi_peak)} > ceil(N/m) = 5")
+        if hp.schedule == "deadline":
+            extra = "; " + _deadline_discipline(torch, es, 20, rs.n_active)
+        sync_free_chunk(torch, ec, 5)
+        say(f"partial slice: fig3 rage_k {name} ({es._compute}), 20 rounds: "
+            f"run_scanned == run bitwise (losses, picks, ages, counts, "
+            f"labels, params, ef memory, every state buffer); n_active "
+            f"{rs.n_active}; aoi peak {max(rs.aoi_peak)}, mean "
+            f"{statistics.mean(rs.aoi_mean):.2f}; labels at round 20 "
+            f"{rs.cluster_labels[-1].tolist()}; loss {rs.loss[-1]:.4f}, "
+            f"acc {rs.acc[-1]:.4f}; {ts * 1e3:.1f} ms stepped, "
+            f"{tc * 1e3:.1f} ms chunked (captures included); graphs "
+            f"{sorted(ec._graphs, key=str)}; 5 replays under "
+            f"set_sync_debug_mode('error'): no host sync{extra}")
+        for e in (es, ec):
+            e.close()
+    # the rates of the partial rounds, both drivers in turns
+    rounds, turns = RATE_FIG3
+    for name, hp, kw in runs[::2]:
+        engines = {v: FederatedEngine("mlp", shards, test, hp, seed=0, **kw)
+                   for v in "SC"}
+        engines["S"].run(2 * rounds, eval_every=rounds)
+        engines["C"].run_scanned(2 * rounds, eval_every=rounds)
+        _rates(torch, engines, rounds, "SCCSSC"[:2 * turns],
+               f"fig3 rage_k {name} ({engines['C']._compute})")
+        for e in engines.values():
+            e.close()
+    return total
+
+
+def phase_compute_plane(torch):
+    """``engine_bench._active_compute``'s setting on the card: 32 clients
+    of 100 samples (``COMPUTE_PLANE``), uniform m of ``COMPUTE_M``, each
+    gathered and masked, through ``run_scanned`` in windows of 20 rounds,
+    the variants in turns (the order, then reversed) after a warm-up
+    window, then one profiled window each (device busy ms a round). Then
+    m 8 gathered against masked for 5 rounds from the same seed: bitwise
+    or the largest differences, printed. Returns the launch counts."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import build
+
+    n, per, rounds = 32, 100, 20
+    (x, y), test = mnist_like(n_train=n * per, n_test=500, seed=0)
+    shards = [(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per])
+              for i in range(n)]
+
+    def make(m, compute):
+        hp = RAgeKConfig(**COMPUTE_PLANE, schedule="uniform",
+                         participation_m=m)
+        return FederatedEngine("mlp", shards, test, hp, seed=0,
+                               compute=compute)
+    engines = {f"m {m} {c}": make(m, c) for m in COMPUTE_M
+               for c in ("masked", "gathered")}
+    build.reset_launches()
+    for eng in engines.values():
+        eng.run_scanned(rounds, eval_every=rounds)
+    order = list(engines) + list(reversed(engines))
+    times = {k: [] for k in engines}
+    for key in order:
+        t0 = time.perf_counter()
+        engines[key].run_scanned(rounds, eval_every=rounds)
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3 / rounds)
+    for key, eng in engines.items():
+        p = profile_window(torch, lambda: eng.run_scanned(
+            rounds, eval_every=rounds), rounds)
+        say(f"compute plane: 32 clients, {key}: "
+            + ", ".join(f"{t:.3f}" for t in times[key])
+            + f" ms a round (windows of {rounds}, in turns); profiled "
+            f"{p['ms']:.3f} ms a round, device busy {p['busy_ms']:.3f} ms "
+            f"({100 * p['busy_ms'] / p['ms']:.1f}%)")
+    launches = dict(build.LAUNCHES)
+    runs = len(engines) * 4 * rounds
+    if launches["segmented_age_topk"] != runs:
+        raise AssertionError(f"compute plane: {launches} in {runs} rounds")
+    for eng in engines.values():
+        eng.close()
+    pair = [make(8, c) for c in ("gathered", "masked")]
+    res = [e.run_scanned(5, eval_every=5) for e in pair]
+    bad = same_run(torch, pair[0], res[0], pair[1], res[1])
+    diff = float((pair[0].g_params - pair[1].g_params).abs().max())
+    say(f"compute plane: m 8 gathered against masked, 5 rounds from one "
+        f"seed: " + ("bitwise equal" if not bad else
+                     f"differ in {bad}; max |g_params diff| {diff:.3e}"))
+    for e in pair:
+        e.close()
+    return launches
+
+
+def phase_fig5_partial(torch, dev, shards, test):
+    """fig5 under uniform m 2 (``FIG5_PARTIAL``: Network-2 at full width,
+    6 clients, r 2,500, k 100, batch 256, H 10): gathered and masked
+    through ``run_scanned``, a warm-up round each (eager, then the
+    capture), then windows of 5 rounds in turns, gathered, masked,
+    masked, gathered: ms a round and a local step; a profiled window of
+    2 rounds each (device busy share). Then one gathered round at batch
+    32, H 1 from the card's round-0 plan on the card (its batches from
+    ``draw_gathered``, checked equal to ``draw``'s rows) against the
+    masked round from the same plan, params, BatchNorm state and full
+    batches, on the CPU and on the card: floats within rtol=1e-4,
+    atol=1e-6, integers exactly; and rAge-k with
+    error feedback, gathered, 4 rounds chunked against 4 stepwise at M 2
+    under ``device.deterministic()``, bitwise. Returns the launch
+    counts."""
+    import gc
+
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.device import deterministic
+    from repro_torch.fl import client as C
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import build
+
+    total = {}
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+
+    hp = RAgeKConfig(**{**FIG5, **FIG5_PARTIAL})
+    engines = {c: FederatedEngine("cnn", shards, test, hp, seed=0,
+                                  compute=c) for c in ("gathered", "masked")}
+    build.reset_launches()
+    for eng in engines.values():
+        eng.run_scanned(1, eval_every=1)
+    times = {c: [] for c in engines}
+    for c in ("gathered", "masked", "masked", "gathered"):
+        t0 = time.perf_counter()
+        engines[c].run_scanned(5, eval_every=5)
+        torch.cuda.synchronize()
+        times[c].append((time.perf_counter() - t0) * 1e3 / 5)
+    for c, eng in engines.items():
+        p = profile_window(torch, lambda: eng.run_scanned(2, eval_every=2), 2)
+        ms = statistics.mean(times[c])
+        say(f"fig5 partial: uniform m 2 {c}, H {hp.H}: "
+            + ", ".join(f"{t:.1f}" for t in times[c])
+            + f" ms a round (windows of 5), {ms / hp.H:.2f} ms a local "
+            f"step; profiled 2 rounds: {p['ms']:.1f} ms a round, device busy "
+            f"{p['busy_ms']:.1f} ms ({100 * p['busy_ms'] / p['ms']:.1f}%); "
+            f"graphs {sorted(eng._graphs, key=str)}")
+    launches = dict(build.LAUNCHES)
+    if launches["segmented_age_topk"] != 2 * 13:
+        raise AssertionError(f"fig5 partial: {launches} in 26 rounds")
+    add(launches)
+    for eng in engines.values():
+        eng.close()
+    del engines, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one gathered round on the card at batch 32, H 1 against the CPU's
+    # masked round restricted to the active rows (the CPU's own grouped
+    # convolution at one or two groups is not its six-group result within
+    # the tolerance; printed), and against the card's masked round
+    hp = RAgeKConfig(**{**FIG5, **FIG5_PARTIAL, **FIG5_PARITY})
+    card, card_m = (FederatedEngine("cnn", shards, test, hp, seed=0,
+                                    compute=c) for c in ("gathered", "masked"))
+    cpu_m, cpu_g = (FederatedEngine("cnn", shards, test, hp, seed=0,
+                                    device="cpu", compute=c)
+                    for c in ("masked", "gathered"))
+    plan = card._scheduler.plan(card.sched)
+    plan_h = _plan_to(plan, "cpu")
+    act = plan.active.nonzero().flatten()
+    state = card._store.gen.get_state()
+    bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
+    card._store.gen.set_state(state)
+    gx, gy, _ = card._store.draw_gathered(card._data, card.samp, hp.H,
+                                          card._compact(plan.active))
+    if not (torch.equal(gx, bx[act]) and torch.equal(gy, by[act])):
+        raise AssertionError("fig5 partial: draw_gathered is not draw's rows")
+    t0 = time.perf_counter()
+    mc = card._round_impl(gx, gy, plan)
+    mm = card_m._round_impl(bx, by, plan)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mh = cpu_m._round_impl(bx.cpu(), by.cpu(), plan_h)
+    dt_h = time.perf_counter() - t0
+    mg = cpu_g._round_impl(gx.cpu(), gy.cpu(), plan_h)
+    tol = dict(rtol=1e-4, atol=1e-6)
+    act_h = act.cpu()
+
+    def floats(m, eng, rows):
+        out = {"losses": m["losses"], "G": m["G"] if rows is None
+               else m["G"][rows], "g_sum": m["g_sum"],
+               "params": eng.g_params}
+        for i, t in enumerate(C.tree_leaves(eng.state_s)):
+            out[f"bn{i // 2}.{('mean', 'var')[i % 2]}"] = t
+        return {k: v.cpu() for k, v in out.items()}
+
+    def diffs(a, b):
+        return {k: (float((a[k] - b[k]).nan_to_num().abs().max()),
+                    int((~torch.isclose(a[k], b[k], equal_nan=True,
+                                        **tol)).sum())) for k in a}
+
+    fc = floats(mc, card, None)
+    against_cpu = diffs(fc, floats(mh, cpu_m, act_h))
+    against_card = diffs(fc, floats(mm, card_m, act))
+    cpu_own = diffs(floats(mg, cpu_g, None), floats(mh, cpu_m, act_h))
+    say(f"fig5 partial parity: one gathered rage_k round (clients "
+        f"{act.tolist()}, batch {hp.batch_size}, H {hp.H}) on the card "
+        f"{dt:.2f} s with the masked one, the CPU's masked {dt_h:.2f} s; max "
+        f"|diff| (elements past rtol 1e-4, atol 1e-6) against the CPU's "
+        f"masked round: "
+        + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in against_cpu.items())
+        + "; against the card's masked round: "
+        + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n)
+                    in against_card.items())
+        + f"; the CPU's own gathered round against its masked one (2 groups "
+        f"against 6): G {cpu_own['G'][0]:.3e} ({cpu_own['G'][1]})")
+    for k in fc:
+        for want, eng in ((floats(mh, cpu_m, act_h), "the CPU's masked"),
+                          (floats(mm, card_m, act), "the card's masked")):
+            torch.testing.assert_close(
+                fc[k], want[k], equal_nan=True, **tol,
+                msg=lambda m: f"fig5 partial {k} against {eng} round: {m}")
+    for m, a in ((mh, cpu_m), (mm, card_m)):
+        if not (torch.equal(mc["idx"].cpu(), m["idx"].cpu())
+                and torch.equal(card.age.cluster_age.cpu(),
+                                a.age.cluster_age.cpu())
+                and torch.equal(card.age.freq.cpu(), a.age.freq.cpu())):
+            raise AssertionError("fig5 partial: picks, ages or counts differ")
+    del card, card_m, cpu_m, cpu_g, mc, mm, mh, mg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with deterministic():
+        hp = RAgeKConfig(**{**FIG5, **FIG5_PARTIAL, **FIG5_DET})
+        step = FederatedEngine("cnn", shards, test, hp, seed=0, ef=True)
+        rs = step.run(4, eval_every=2)
+        eng = FederatedEngine("cnn", shards, test, hp, seed=0, ef=True)
+        launches, rc, dt = drive_chunked(torch, eng, 4,
+                                         ("rage_k", "segmented"), 2)
+        add(launches)
+        bad = same_run(torch, step, rs, eng, rc)
+    if bad:
+        raise AssertionError(f"fig5 partial ef under deterministic(): "
+                             f"chunked differs from stepwise in {bad}")
+    say(f"fig5 partial: rage_k ef=True uniform m 2 gathered, 4 rounds at H "
+        f"{hp.H}, M {hp.M} under device.deterministic(): chunked == stepwise "
+        f"bitwise (losses, picks, ages, counts, labels "
+        f"{[l.tolist() for l in rc.cluster_labels]}, params, BatchNorm "
+        f"state, ef memory); n_active {rc.n_active}; graphs "
+        f"{sorted(eng._graphs, key=str)}")
+    for e in (eng, step):
         e.close()
     return total
 
@@ -2029,6 +2612,9 @@ def main() -> int:
     del eng, rtop
     chunked = phase_chunked(torch, shards, test)
     phase_rates_fig3(torch, shards, test, profile)
+    phase_partial_parity(torch, dev, shards, test)
+    partial = phase_partial_slice(torch, shards, test)
+    compute = phase_compute_plane(torch)
     del shards, test, x, y
 
     t0 = time.perf_counter()
@@ -2041,6 +2627,7 @@ def main() -> int:
     phase_cifar_parity(torch, dev, shards, test)
     cifar, real = phase_cifar_slice(torch, dev, shards, test, profile)
     cifar_chunked = phase_cifar_chunked(torch, shards, test, profile)
+    fig5_partial = phase_fig5_partial(torch, dev, shards, test)
     del shards, test
     torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
@@ -2051,8 +2638,8 @@ def main() -> int:
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
-            launches, base, chunked, cifar, cifar_chunked, smoke, serve,
-            long))
+            launches, base, chunked, partial, compute, cifar, cifar_chunked,
+            fig5_partial, smoke, serve, long))
         if k["name"] in real:
             k["cifar_real_gradients"] = real[k["name"]]
     say(json.dumps({"kernels": kernels}))

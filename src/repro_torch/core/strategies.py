@@ -119,6 +119,14 @@ class RandomK:
 
     select_batch = select
 
+    def select_rows(self, G, gen, rows: torch.Tensor, n: int):
+        """:meth:`select_batch` for the rows ``rows`` ((m,) int64) of an
+        n-client batch, G (m, d): the draw is made for all n clients and
+        the rows kept, so a client's pick depends only on its id."""
+        idx = _draw(gen, (n,), G.shape[-1], self.k,
+                    G.device).index_select(0, rows)
+        return idx.to(torch.int32), G.gather(-1, idx), gen
+
 
 @dataclass(frozen=True)
 class RTopK:
@@ -137,6 +145,15 @@ class RTopK:
         return idx, g.gather(-1, idx.to(torch.int64)), gen
 
     select_batch = select
+
+    def select_rows(self, G, gen, rows: torch.Tensor, n: int):
+        """:meth:`select_batch` for the rows ``rows`` ((m,) int64) of an
+        n-client batch, G (m, d): the picks are drawn for all n clients
+        and the rows kept, so a client's draw depends only on its id."""
+        cand = topr_candidates(G, self.r, self.candidates)
+        pick = _draw(gen, (n,), self.r, self.k, G.device).index_select(0, rows)
+        idx = cand.gather(-1, pick)
+        return idx, G.gather(-1, idx.to(torch.int64)), gen
 
 
 @dataclass(frozen=True)
@@ -167,13 +184,13 @@ class RAgeK:
     def select_segmented(self, G, cluster_age, cluster_of, *,
                          num_segments: int | None = None,
                          max_seg: int | None = None, disjoint: bool = True,
-                         cands=None, d: int | None = None):
+                         cands=None, d: int | None = None, active=None):
         """Cluster-coordinated batched selection; see
         :func:`segmented_rage_select`."""
         return segmented_rage_select(
             G, cluster_age, cluster_of, r=self.r, k=self.k,
             num_segments=num_segments, max_seg=max_seg, disjoint=disjoint,
-            cands=cands, candidates=self.candidates, d=d)
+            cands=cands, candidates=self.candidates, d=d, active=active)
 
 
 @dataclass(frozen=True)
@@ -261,13 +278,19 @@ def client_candidates(G: torch.Tensor, r: int,
 
 
 def segment_pack(cluster_of: torch.Tensor, num_segments: int,
-                 max_seg: int) -> torch.Tensor:
+                 max_seg: int, active: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """(N,) cluster ids -> (C, S) int32 members matrix, client order kept
     within each cluster; empty slots hold N. Entries beyond num_segments
-    or max_seg are dropped, as the reference's ``mode='drop'``."""
+    or max_seg are dropped, as the reference's ``mode='drop'``.
+    ``active`` ((N,) bool, the participation plane's mask) packs only the
+    active clients: the others take the label num_segments and drop, so
+    a cluster with no active member is a row of empty slots."""
     n = cluster_of.shape[0]
     dev = cluster_of.device
     cl = cluster_of.to(torch.int64)
+    if active is not None:
+        cl = torch.where(active, cl, num_segments)
     sorted_cl, order = torch.sort(cl, stable=True)
     ar = torch.arange(n, device=dev)
     is_start = torch.ones(n, dtype=torch.bool, device=dev)
@@ -289,9 +312,9 @@ def segmented_rage_select(G: torch.Tensor | None, cluster_age: torch.Tensor,
                           num_segments: int | None = None,
                           max_seg: int | None = None, disjoint: bool = True,
                           cands: torch.Tensor | None = None,
-                          candidates: str = "sort", d: int | None = None):
-    """Paper Algorithm 1 steps 2-3 + eq. (2), segmented, for a full round
-    (every client takes part).
+                          candidates: str = "sort", d: int | None = None,
+                          active: torch.Tensor | None = None):
+    """Paper Algorithm 1 steps 2-3 + eq. (2), segmented.
 
     G: (N, d) client gradients, or None with a precomputed ``cands``
     report and the gradient dim ``d``; cluster_age: (>= num_segments, d)
@@ -299,6 +322,13 @@ def segmented_rage_select(G: torch.Tensor | None, cluster_age: torch.Tensor,
     top-k goes through ``ops.segmented_age_topk`` (the kernel on the
     card). Returns (idx (N, k) int32, new_cluster_age,
     SegmentedSelection); rows >= num_segments are untouched.
+
+    ``active`` ((N,) bool; None: every client) is the participation
+    plane's mask: only active clients are packed, select and reset ages;
+    the others request nothing (sentinel-d idx rows, and their ``cands``
+    rows are never read) but still apply eq. (2)'s +1, first (they reset
+    nothing, so their +1s commute), so a cluster with no active member
+    keeps aging. max_seg may then be the largest active cluster.
     """
     if G is None:
         if cands is None or d is None:
@@ -313,7 +343,7 @@ def segmented_rage_select(G: torch.Tensor | None, cluster_age: torch.Tensor,
     if max_seg is None:
         max_seg = n
     dev = cluster_of.device
-    members = segment_pack(cluster_of, num_segments, max_seg)
+    members = segment_pack(cluster_of, num_segments, max_seg, active)
     valid = members < n
     mclip = members.clamp(max=n - 1).to(torch.int64)
     if cands is None:
@@ -328,12 +358,23 @@ def segmented_rage_select(G: torch.Tensor | None, cluster_age: torch.Tensor,
     idx = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
     idx[members.reshape(-1).to(torch.int64)] = seg_idx.reshape(-1, k)
     idx = idx[:n]
+    if active is not None:
+        idx = torch.where(active.unsqueeze(1), idx, d)
 
     # eq. (2) per segment in closed form: a requested coordinate ends at
-    # (members after its last requester), sz - 1 - last_pos; the others
-    # gain every member's +1. last_pos is a scatter-max of positions;
-    # padded slots scatter into a spare slot that is cut off.
+    # (active members after its last requester), sz - 1 - last_pos; the
+    # others gain every member's +1, active or not (tot; sz when every
+    # client takes part). last_pos is a scatter-max of positions; padded
+    # slots scatter into a spare slot that is cut off.
     sz = valid.sum(dim=1).to(torch.int32)
+    if active is None:
+        tot = sz
+    else:
+        cl = cluster_of.to(torch.int64)
+        tot = torch.zeros(num_segments + 1, dtype=torch.int32,
+                          device=dev).index_add_(
+            0, torch.where(cl < num_segments, cl, num_segments),
+            torch.ones_like(cluster_of, dtype=torch.int32))[:num_segments]
     pos = torch.arange(max_seg, device=dev).view(1, S, 1).expand(C, S, k)
     flat = torch.where(
         valid.unsqueeze(-1),
@@ -343,7 +384,7 @@ def segmented_rage_select(G: torch.Tensor | None, cluster_age: torch.Tensor,
     last.scatter_reduce_(0, flat.reshape(-1), pos.reshape(-1), "amax")
     last = last[:C * d].view(C, d)
     new_rows = torch.where(last >= 0, sz.unsqueeze(1) - 1 - last,
-                           ca + sz.unsqueeze(1)).to(torch.int32)
+                           ca + tot.unsqueeze(1)).to(torch.int32)
     new_cluster_age = cluster_age.clone()
     new_cluster_age[:num_segments] = new_rows
     seg_idx = torch.where(valid.unsqueeze(-1), seg_idx,

@@ -1,5 +1,6 @@
 """Device-resident client data: the port of ``DeviceShardStore``,
-``SamplerState`` and ``draw`` from ``repro.data.pipeline``.
+``SamplerState``, ``draw`` and ``draw_gathered`` from
+``repro.data.pipeline``.
 
 Every client shard is uploaded once, padded to a common capacity; the
 true per-client lengths bound every permutation, so padding is never
@@ -14,7 +15,10 @@ reference decides it in its jitted program: at each local step every
 client draws a fresh permutation, which ``torch.where`` puts in place of
 the old one only in the rows that wrap. A draw thus launches the same
 work whatever the cursors are, has no host sync, and can be captured
-into a CUDA graph and replayed.
+into a CUDA graph and replayed. :meth:`DeviceShardStore.draw_gathered`
+(the compute plane's draw for the active clients only) draws the same
+permutations from the generator and keeps the listed rows, so a
+client's batches do not depend on whether its round was gathered.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.fl.client import put_rows
 
 
 class SamplerState(NamedTuple):
@@ -59,13 +64,17 @@ class DeviceShardStore:
                                   device=self.device))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
-    def _perm(self) -> torch.Tensor:
+    def _perm(self, rows: torch.Tensor | None = None) -> torch.Tensor:
         """Fresh permutations of every client's first ``length`` slots;
-        padding slots sort last."""
+        padding slots sort last. ``rows`` ((m,) int64) keeps those
+        clients' rows of the same draw."""
         u = torch.rand((self.n, self.capacity), generator=self.gen,
                        device=self.device)
+        lengths = self.data[2]
+        if rows is not None:
+            u, lengths = u.index_select(0, rows), lengths.index_select(0, rows)
         real = (torch.arange(self.capacity, device=self.device)
-                < self.data[2].unsqueeze(1))
+                < lengths.unsqueeze(1))
         u = torch.where(real, u, 2.0)
         return torch.argsort(u, dim=1, stable=True)
 
@@ -80,15 +89,38 @@ class DeviceShardStore:
         capacity uniforms and a row sort) and keeps it where the client
         wraps."""
         x, y, lengths = data
-        order, pos = state.order, state.pos
+        sel, order, pos = self._select(lengths, state.order, state.pos, H)
+        client = torch.arange(self.n, device=self.device).view(-1, 1, 1)
+        return x[client, sel], y[client, sel], SamplerState(order, pos)
+
+    def draw_gathered(self, data, state: SamplerState, H: int,
+                      idx: torch.Tensor):
+        """The next H batches of the clients in ``idx`` only: (m,) ids
+        padded with the sentinel N. Returns (bx (m, H, B, ...), by (m, H,
+        B), new_state) with only the listed clients' cursors and
+        permutations advanced, by the math :meth:`draw` applies to their
+        rows (the same permutations: each local step draws all N and
+        keeps the listed rows). Padded slots read a clipped duplicate row
+        and write nothing back."""
+        x, y, lengths = data
+        rows = idx.clamp(max=self.n - 1).to(torch.int64)
+        sel, order, pos = self._select(
+            lengths.index_select(0, rows), state.order.index_select(0, rows),
+            state.pos.index_select(0, rows), H, rows)
+        client = rows.view(-1, 1, 1)
+        return x[client, sel], y[client, sel], put_rows(
+            state, idx.to(torch.int64), SamplerState(order, pos))
+
+    def _select(self, lengths, order, pos, H: int, rows=None):
+        """H steps of the sampler on the given rows: (sample indices (rows,
+        H, B), order, pos). The wrap, reshuffle and cursor math of every
+        draw lives here."""
         span = torch.arange(self.bs, device=self.device)
         sels = []
         for _ in range(H):
             wrap = pos + self.bs > lengths
-            order = torch.where(wrap.unsqueeze(1), self._perm(), order)
+            order = torch.where(wrap.unsqueeze(1), self._perm(rows), order)
             pos = torch.where(wrap, 0, pos)
             sels.append(order.gather(1, pos.unsqueeze(1) + span))
             pos = pos + self.bs
-        sel = torch.stack(sels, dim=1)                       # (N, H, B)
-        client = torch.arange(self.n, device=self.device).view(-1, 1, 1)
-        return x[client, sel], y[client, sel], SamplerState(order, pos)
+        return torch.stack(sels, dim=1), order, pos

@@ -9,7 +9,11 @@ backward of the summed per-client losses gives every client's own
 gradient row. Model state that is not a parameter (the CNN's BatchNorm
 running statistics, a tree of (N, C) leaves; ``{}`` for the MLP)
 threads through the steps beside the parameters. The last step's flat
-gradient feeds the fused top-r candidate report.
+gradient, plus the error-feedback residual where there is one, feeds
+the fused top-r candidate report. The client axis may hold any m <= N
+rows: the compute plane's gathered round trains only the active
+clients' rows (per-client math is row-independent), which
+:func:`take_rows` gathers and :func:`put_rows` scatters back.
 
 Flat order is ``jax.tree_util``'s: leaves in sorted-key order at every
 level (``fc1.b, fc1.w, fc2.b, fc2.w`` for the MLP), so a flat index
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.strategies import client_candidates
+from repro_torch.optim.error_feedback import ef_compensate
 from repro_torch.optim.optimizers import adam, apply_updates
 
 
@@ -81,14 +86,16 @@ def make_local_phase(apply_loss: Callable, unflatten: Callable, lr: float, *,
     for leaves and state stacked over clients.
 
     Returns phase(params_s (N, d), opt_s, state_s, bx (N, H, B, ...),
-    by (N, H, B)) -> (params_s, opt_s, state_s, G (N, d), report (N, r) |
-    None, losses (N,)): H Adam steps per client, the model state after
-    them, the flat last-step gradients, the fused top-r candidate report
-    (``client_candidates(G, report_r, report_impl)``) and the mean loss
-    per client over the H steps."""
+    by (N, H, B)[, ef (N, d)]) -> (params_s, opt_s, state_s, G (N, d),
+    report (N, r) | None, losses (N,)): H Adam steps per client, the
+    model state after them, the flat last-step gradients plus ``ef`` (the
+    error-feedback residual, added before the report, as the reference
+    does), the fused top-r candidate report (``client_candidates(G,
+    report_r, report_impl)``) and the mean loss per client over the H
+    steps."""
     opt = adam(lr)
 
-    def phase(params_s, opt_s, state_s, bx, by):
+    def phase(params_s, opt_s, state_s, bx, by, ef=None):
         losses = []
         g = None
         for h in range(bx.shape[1]):
@@ -99,6 +106,8 @@ def make_local_phase(apply_loss: Callable, unflatten: Callable, lr: float, *,
             updates, opt_s = opt.update(g, opt_s, p)
             params_s = apply_updates(p.detach(), updates)
             losses.append(loss.detach())
+        if ef is not None:
+            g = ef_compensate(ef, g)
         report = (client_candidates(g, report_r, report_impl)
                   if report_r is not None else None)
         return (params_s, opt_s, state_s, g, report,
@@ -125,6 +134,45 @@ def tree_map(fn: Callable, tree):
 def client_tree(tree, i: int):
     """Client i's row of every leaf of a tree stacked over clients."""
     return tree_map(lambda t: t[i], tree)
+
+
+def map_rows(fn: Callable, *trees):
+    """``fn`` over the matching leaves of trees of equal structure (nested
+    dicts, tuples and NamedTuples; None leaves stay None)."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: map_rows(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple):
+        out = [map_rows(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    return fn(*trees)
+
+
+def take_rows(tree, rows: torch.Tensor):
+    """The rows ``rows`` ((m,) int64 client ids) of every leaf."""
+    return map_rows(lambda a: a.index_select(0, rows), tree)
+
+
+def put_rows(old, idx: torch.Tensor, new):
+    """``old`` with the rows ``idx`` ((m,) int64) of every leaf set to the
+    leaves of ``new``; ids equal to N (the sentinel of a padded slot)
+    write nothing: they land in a spare row that is cut off (the
+    reference's ``.at[idx].set(..., mode="drop")``)."""
+    def put(a, b):
+        out = torch.cat([a, a[:1]])
+        out.index_copy_(0, idx, b.to(a.dtype))
+        return out[:a.shape[0]]
+    return map_rows(put, old, new)
+
+
+def where_rows(mask: torch.Tensor, new, old):
+    """Per client: ``new``'s row where ``mask`` ((N,) bool), else
+    ``old``'s; an all-True mask gives ``new`` bitwise."""
+    def pick(a, b):
+        return torch.where(mask.view(-1, *(1,) * (a.ndim - 1)), a, b)
+    return map_rows(pick, new, old)
 
 
 def broadcast_global(global_params: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,30 +1,43 @@
 """FederatedEngine, the synchronous round (paper Algorithm 1): the port of
 ``repro.fl.engine`` for the paths of the paper's two settings: the MNIST
 MLP (fig3) and the CIFAR CNN (fig5, its BatchNorm statistics held per
-client), full participation, the dense age layout, every selection
-method of ``make_strategy``, the threshold (or sort) candidate report,
-masked compute, and both drivers: ``run`` (a round a step) and
-``run_scanned`` (chunks of rounds, each round on the card one replay of
-a CUDA graph of the round body).
+client), the dense age layout, every selection method of
+``make_strategy``, the threshold (or sort) candidate report, error
+feedback, the participation plane (``fl.schedule``: full, uniform m of
+N, AoI-balanced, deadline), the compute plane (masked or gathered), and
+both drivers: ``run`` (a round a step) and ``run_scanned`` (chunks of
+rounds, each round on the card one replay of a CUDA graph of the round
+body).
 
 One rAge-k round, all on the engine's device:
 
-1. draw each client's H batches from the device shard store;
-2. run H Adam steps per client (TF32 off: float32 matmuls and
-   convolutions), keep the flat last-step gradient and its top-r
-   candidate report (on the card the ``maghist_batch`` and
-   ``threshold_topk_batch`` kernels);
-3. pick k indices per client by cluster age, disjoint within a cluster
-   (``selection='segmented'``: the ``segmented_age_topk`` kernel;
-   ``'scan'``: the sequential reference :func:`rage_select`);
-4. apply the eq.-(2) age update and count requests (eq. 3);
-5. sum the sparse uploads (the ``sparse_aggregate`` kernel) and take a
-   global Adam step.
+1. ask the scheduler for the round's plan (who takes part, who is late);
+2. draw each client's H batches from the device shard store (gathered:
+   the active clients' only);
+3. run H Adam steps per client (TF32 off: float32 matmuls and
+   convolutions), keep the flat last-step gradient plus the
+   error-feedback residual, and its top-r candidate report (on the card
+   the ``maghist_batch`` and ``threshold_topk_batch`` kernels);
+4. pick k indices per active client by cluster age, disjoint within a
+   cluster (``selection='segmented'``: the ``segmented_age_topk``
+   kernel; ``'scan'``: the sequential reference :func:`rage_select`);
+5. apply the eq.-(2) age update (clients outside the round age with no
+   reset) and count requests (eq. 3);
+6. sum the sparse uploads, late ones staleness-weighted (the
+   ``sparse_aggregate`` kernel), take a global Adam (or SGD) step, and
+   keep what each client did not send as its error-feedback residual.
 
-The other methods replace steps 2-4 by their strategy's ``select_batch``
-on the (N, d) gradients: rTop-k and CAFe take their candidate report
-there (on the card the same two report kernels), top-k and
-random-k need none, and dense uploads everything (no kernel at all).
+The other methods replace steps 3-5 by their strategy's ``select_batch``
+on the gradients: rTop-k and CAFe take their candidate report there (on
+the card the same two report kernels), top-k and random-k need none,
+and dense uploads everything (no kernel at all).
+
+``compute='masked'`` trains all N clients and discards the rows outside
+the round; ``'gathered'`` compacts the active ids to the scheduler's
+bound m (padded with the sentinel N), trains those m rows only and
+scatters the results back, so a gathered round equals the masked one
+(``'auto'`` gathers exactly when m < N). Under full participation every
+mask is skipped: the round is the full-participation program.
 
 Every M rounds the host pulls the (N, d) request counts, runs DBSCAN and
 merges or resets the cluster ages (rAge-k only): inline under ``run``,
@@ -57,11 +70,11 @@ from repro_torch.core.strategies import (age_select, make_strategy,
 from repro_torch.data.pipeline import DeviceShardStore
 from repro_torch.device import resolve, strict_fp32
 from repro_torch.fl import client as C
-from repro_torch.fl.schedule import SchedState, make_scheduler
+from repro_torch.fl.schedule import RoundPlan, SchedState, make_scheduler
 from repro_torch.fl.server import aggregate_sparse, aggregate_sparse_fused
 from repro_torch.kernels import build
 from repro_torch.models import paper_nets as P
-from repro_torch.optim.optimizers import adam, apply_updates
+from repro_torch.optim.optimizers import adam, apply_updates, sgd
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
          "float16": torch.float16}
@@ -170,8 +183,19 @@ def select_member_topk(cluster_age: torch.Tensor, taken: torch.Tensor | None,
     return age_select(cand, ages, k)[1]
 
 
+def count_requests(freq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Eq.-(3) request counts: +1 at each of client i's requested indices
+    in row i of ``freq`` (N, d); sentinel-d entries (clients outside the
+    round) land in a spare column that is cut off."""
+    n, d = freq.shape
+    spare = torch.cat([freq, freq.new_zeros((n, 1))], dim=1)
+    idx = idx.to(torch.int64)
+    return spare.scatter_add_(1, idx, torch.ones_like(
+        idx, dtype=freq.dtype))[:, :d]
+
+
 def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
-                disjoint: bool = True):
+                disjoint: bool = True, active: torch.Tensor | None = None):
     """Algorithm 1 steps 2-3 + eq. (2), sequentially over clients: the
     reference the segmented plane is pinned to (``selection='scan'``).
 
@@ -179,31 +203,45 @@ def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
     round are excluded for the later members (disjointness, §II). Every
     client reads round-start ages; eq. (2) then applies member by member
     (+1 per member, requested set to 0). ``cands`` is the (N, r) report.
-    Every client takes part. Returns (idx (N, k) int32, new
-    DeviceAgeState)."""
+    ``active`` ((N,) bool; None: every client) is the participation
+    plane's mask: inactive clients request nothing (sentinel-d rows) and
+    enter no ``taken`` set, and their +1s apply first, with no reset.
+    Returns (idx (N, k) int32, new DeviceAgeState)."""
     n = cands.shape[0]
+    d = age.cluster_age.shape[1]
     cands = cands.to(torch.int64)
     cl = age.cluster_of.to(torch.int64)
-    taken = (torch.zeros(age.cluster_age.shape, dtype=torch.bool,
-                         device=cands.device) if disjoint else None)
+    # a spare column takes the sentinel picks of inactive clients
+    taken = (torch.zeros((age.cluster_age.shape[0], d + 1),
+                         dtype=torch.bool, device=cands.device)
+             if disjoint else None)
     # a device scalar: a Python one would be copied up at every write
     true = torch.ones((), dtype=torch.bool, device=cands.device)
     rows = []
     for i in range(n):
         idx_i = select_member_topk(age.cluster_age, taken, cands[i],
                                    cl[i:i + 1], k=k)
+        if active is not None:
+            idx_i = torch.where(active[i], idx_i, d)
         if disjoint:
             taken.index_put_((cl[i:i + 1], idx_i), true)
         rows.append(idx_i)
     idx = torch.stack(rows)
     cluster_age = age.cluster_age.clone()
+    if active is not None:
+        # inactive members' +1s commute (they reset nothing): first
+        cluster_age += torch.zeros(
+            cluster_age.shape[0], dtype=cluster_age.dtype,
+            device=cl.device).index_add_(
+            0, cl, (~active).to(cluster_age.dtype)).unsqueeze(1)
     for i in range(n):
         row = cluster_age.index_select(0, cl[i:i + 1])[0]
-        cluster_age.index_copy_(0, cl[i:i + 1],
-                                member_age_row(row, idx[i]).unsqueeze(0))
-    freq = age.freq.scatter_add(1, idx, torch.ones_like(age.freq[:, :k]))
-    return idx.to(torch.int32), age._replace(cluster_age=cluster_age,
-                                             freq=freq)
+        new_row = member_age_row(row, idx[i])
+        if active is not None:
+            new_row = torch.where(active[i], new_row, row)
+        cluster_age.index_copy_(0, cl[i:i + 1], new_row.unsqueeze(0))
+    return idx.to(torch.int32), age._replace(
+        cluster_age=cluster_age, freq=count_requests(age.freq, idx))
 
 
 def apply_global(g_opt, g_sum, g_params, g_opt_state):
@@ -230,18 +268,17 @@ def rage_select_segmented(age: DeviceAgeState, *, r: int, k: int,
                           cands: torch.Tensor, d: int,
                           num_segments: int | None = None,
                           max_seg: int | None = None,
-                          disjoint: bool = True):
+                          disjoint: bool = True,
+                          active: torch.Tensor | None = None):
     """Segmented selection on a precomputed candidate report plus the
-    request count update. Returns (idx (N, k) int32, new DeviceAgeState,
-    SegmentedSelection)."""
+    request count update; ``active`` as in :func:`rage_select`. Returns
+    (idx (N, k) int32, new DeviceAgeState, SegmentedSelection)."""
     idx, new_ca, seg = segmented_rage_select(
         None, age.cluster_age, age.cluster_of, r=r, k=k,
         num_segments=num_segments, max_seg=max_seg, disjoint=disjoint,
-        cands=cands, d=d)
-    # every client takes part, so every idx entry is a real coordinate
-    freq = age.freq.scatter_add(1, idx.to(torch.int64),
-                                torch.ones_like(idx))
-    return idx, age._replace(cluster_age=new_ca, freq=freq), seg
+        cands=cands, d=d, active=active)
+    return idx, age._replace(cluster_age=new_ca,
+                             freq=count_requests(age.freq, idx)), seg
 
 
 def _recluster_host(freq: np.ndarray, cluster_age: np.ndarray,
@@ -288,7 +325,10 @@ class FederatedEngine:
     parameter tree, e.g. from ``weights.params_from_jax``) replaces the
     seeded initial weights, ``state`` (the CNN's BatchNorm statistics,
     ``{"conv{i}": {"mean", "var"}}``) the initial model state; every
-    client starts from both.
+    client starts from both. ``ef`` keeps an (N, d) error-feedback
+    residual per client; ``global_opt`` is the PS's optimizer ('adam' or
+    'sgd'); ``compute`` the compute plane ('auto', 'gathered' or
+    'masked'); ``hp.schedule`` the participation plane.
 
     Two drivers run the same round body on the same state: :meth:`run`
     steps eagerly and pulls every round's metrics; :meth:`run_scanned`
@@ -301,22 +341,20 @@ class FederatedEngine:
     def __init__(self, kind: str, shards: list, test: tuple,
                  hp: RAgeKConfig, *, seed: int = 0, device=None,
                  params=None, state=None, ef: bool = False,
-                 selection: str = "segmented", compute: str = "auto",
-                 faults=None):
+                 global_opt: str = "adam", selection: str = "segmented",
+                 compute: str = "auto", faults=None):
         if selection not in ("scan", "segmented"):
             raise ValueError(f"selection must be 'scan' or 'segmented', "
                              f"got {selection!r}")
-        if compute == "gathered":
-            raise _todo("compute='gathered'", "item 10: participation "
-                        "and compute planes")
-        if compute not in ("auto", "masked"):
+        if compute not in ("auto", "gathered", "masked"):
             raise ValueError(f"compute must be 'auto', 'gathered' or "
                              f"'masked', got {compute!r}")
+        if global_opt not in ("adam", "sgd"):
+            raise ValueError(f"global_opt must be 'adam' or 'sgd', got "
+                             f"{global_opt!r}")
         if hp.age_layout != "dense":
             raise _todo(f"age_layout={hp.age_layout!r}", "item 11: the "
                         "hierarchical age layout")
-        if ef:
-            raise _todo("ef=True", "items 3 and 5: error feedback")
         if faults is not None:
             raise _todo("faults", "item 13: resilience")
         self.device = dev = resolve(device)
@@ -348,8 +386,20 @@ class FederatedEngine:
             report_impl=hp.candidates)
         # the draws of rtop_k and random_k
         self._gen = torch.Generator(device=dev).manual_seed(seed + 99)
-        self._g_opt = adam(hp.lr)
-        self._scheduler = make_scheduler(hp.schedule, n, device=dev)
+        self._g_opt = adam(hp.lr) if global_opt == "adam" else sgd(hp.lr)
+        # participation plane: who takes part, planned on the device from
+        # the scheduler state (seed, round counter, client AoI)
+        self._scheduler = make_scheduler(
+            hp.schedule, n, participation_m=hp.participation_m,
+            deadline_s=hp.deadline_s, seed=seed + 41, device=dev)
+        self._full = self._scheduler.name == "full"
+        # compute plane: 'gathered' trains only the m_bound compacted
+        # active rows; 'auto' gathers exactly when that is a real cut
+        if compute == "auto":
+            compute = ("gathered" if self._scheduler.m_bound < n
+                       else "masked")
+        self._compute = compute
+        self.ef = ef
         self._wire_dtype = _WIRE[hp.wire_dtype]
         # segmented packing bounds (live cluster count, largest cluster),
         # recomputed from the host DBSCAN labels at every recluster
@@ -367,7 +417,9 @@ class FederatedEngine:
                                    C.stack_clients([state] * n))
                         if state else {})
         self.age = DeviceAgeState.create(d, n, dev)
-        self.sched = SchedState.create(n, dev)
+        self.ef_mem = (torch.zeros((n, d), dtype=torch.float32, device=dev)
+                       if ef else None)
+        self.sched = SchedState.create(n, seed + 23, dev)
         self.round_idx = 0
 
         self._store = DeviceShardStore(shards, hp.batch_size,
@@ -417,67 +469,182 @@ class FederatedEngine:
         """The global parameters as a tree of views."""
         return self._unflatten(self.g_params)
 
-    def _select(self, G: torch.Tensor, cands, plan):
-        """Step 3 for the engine's method: (idx (N, k) int32, or None for
+    def _compact(self, active: torch.Tensor) -> torch.Tensor:
+        """(m_bound,) int64 ids of the active clients, ascending, padded
+        with the sentinel N: the head of a stable sort of ``~active``
+        (``torch.nonzero`` would sync the host)."""
+        order = torch.sort((~active).to(torch.uint8), stable=True).indices
+        order = order[:self._scheduler.m_bound]
+        return torch.where(active.index_select(0, order), order, self.n)
+
+    def _select(self, G: torch.Tensor, cands, plan: RoundPlan, act_idx):
+        """Step 4 for the engine's method: (idx (N, k) int32, or None for
         dense; the SegmentedSelection of rage_k's segmented plane, or
-        None). Updates the age state in place."""
-        hp, d = self.hp, self.d
+        None). ``G`` holds the trained rows: all N (masked), or the
+        ``act_idx`` slots (gathered; ``cands`` is in client layout either
+        way). Updates the age state in place."""
+        hp, n, d = self.hp, self.n, self.d
+        act = None if self._full else plan.active
+        rows = None if act_idx is None else act_idx.clamp(max=n - 1)
+
+        def to_clients(idx_rows):
+            return C.put_rows(torch.full((n, hp.k), d, dtype=torch.int32,
+                                         device=self.device),
+                              act_idx, idx_rows.to(torch.int32))
         seg = None
         if hp.method == "rage_k":
             if self._selection == "segmented":
                 idx, age, seg = rage_select_segmented(
                     self.age, r=hp.r, k=hp.k, cands=cands, d=d,
                     num_segments=self._num_seg,
-                    max_seg=min(self._max_seg, plan.m),
-                    disjoint=hp.disjoint_in_cluster)
+                    max_seg=min(self._max_seg, self._scheduler.m_bound),
+                    disjoint=hp.disjoint_in_cluster, active=act)
             else:
                 idx, age = rage_select(self.age, k=hp.k, cands=cands,
-                                       disjoint=hp.disjoint_in_cluster)
+                                       disjoint=hp.disjoint_in_cluster,
+                                       active=act)
             _write(self.age, age)
         elif hp.method == "cafe":
             # per-client cost-and-age selection: cluster_age doubles as the
             # per-client age rows (clusters stay singletons: no recluster
-            # on this method) and freq holds the cumulative cost
-            idx, _, (ca, cost) = self._strategy.select_batch(
-                G, (self.age.cluster_age, self.age.freq))
+            # on this method) and freq holds the cumulative cost; clients
+            # outside the round age with no reset, no cost
+            ca0, cost0 = self.age.cluster_age, self.age.freq
+            if rows is None:
+                idx, _, (ca, cost) = self._strategy.select_batch(
+                    G, (ca0, cost0))
+                if act is not None:
+                    ca = torch.where(act.unsqueeze(1), ca, ca0 + 1)
+                    cost = torch.where(act.unsqueeze(1), cost, cost0)
+            else:
+                idx_c, _, (ca_c, cost_c) = self._strategy.select_batch(
+                    G, C.take_rows((ca0, cost0), rows))
+                ca = C.put_rows(ca0 + 1, act_idx, ca_c)
+                cost = C.put_rows(cost0, act_idx, cost_c)
+                idx = to_clients(idx_c)
             _write((self.age.cluster_age, self.age.freq), (ca, cost))
         elif hp.method == "dense":
             return None, None
         elif hp.method in ("rtop_k", "random_k"):
-            idx, _, _ = self._strategy.select_batch(G, self._gen)
+            if rows is None:
+                idx, _, _ = self._strategy.select_batch(G, self._gen)
+            else:
+                # the draw stays full-N: a client's draw depends only on
+                # its id, not on who else took part
+                idx = to_clients(self._strategy.select_rows(
+                    G, self._gen, rows, n)[0])
         else:                                       # top_k, deterministic
             idx, _, _ = self._strategy.select_batch(G, ())
+            if rows is not None:
+                idx = to_clients(idx)
         # clients outside the round request nothing: sentinel-d rows, set
         # in this one place so that no method can forget them
         return torch.where(plan.active.unsqueeze(1), idx, d), seg
 
-    def _round_impl(self, bx: torch.Tensor, by: torch.Tensor) -> dict:
-        """One global round from the clients' batches (bx (N, H, B, ...),
-        by (N, H, B)). Updates the engine state in place and returns the
-        round's device tensors: losses (N,), the last-step gradients G
-        (N, d), idx (N, k) (None for dense), the aggregated gradient g_sum
+    def _upload(self, G: torch.Tensor, idx, plan: RoundPlan, act_idx):
+        """What each trained row uploads, in wire form, late arrivals
+        weighted: (vals (N, k) in client layout, or for dense the (N, d)
+        sum's rows; sent (rows, d), each row's upload densely, for the
+        error-feedback residual, or None without ef)."""
+        n, d = self.n, self.d
+        gathered = act_idx is not None
+        rows = act_idx.clamp(max=n - 1) if gathered else None
+        if not self._full:
+            # per row of G: taking part (not a padded slot), stale, weight
+            ok = act_idx < n if gathered else plan.active
+            stale, weight = plan.staleness > 0, plan.weight
+            if gathered:
+                stale = stale.index_select(0, rows)
+                weight = weight.index_select(0, rows)
+
+        def weigh(v):
+            v = v.to(self._wire_dtype).to(G.dtype)
+            if self._full:
+                return v
+            # a stale arrival lands discounted; the fresh path stays
+            # bitwise (the weight only where stale)
+            v = torch.where(stale.unsqueeze(1),
+                            v * weight.unsqueeze(1).to(G.dtype), v)
+            return torch.where(ok.unsqueeze(1), v, 0.0)
+        if idx is None:
+            gw = weigh(G)
+            if gathered:
+                gw_n = C.put_rows(torch.zeros((n, d), dtype=G.dtype,
+                                              device=self.device),
+                                  act_idx, gw)
+            else:
+                gw_n = gw
+            return gw_n, gw if self.ef else None
+        idx_rows = idx.index_select(0, rows) if gathered else idx
+        vals_r = weigh(G.gather(1, idx_rows.to(torch.int64).clamp(max=d - 1)))
+        vals = (C.put_rows(torch.zeros(idx.shape, dtype=G.dtype,
+                                       device=self.device), act_idx, vals_r)
+                if gathered else vals_r)
+        sent = None
+        if self.ef:
+            # sentinel-d picks land in a spare column that is cut off
+            sent = torch.zeros((G.shape[0], d + 1), dtype=G.dtype,
+                               device=self.device).scatter_(
+                1, idx_rows.to(torch.int64), vals_r)[:, :d]
+        return vals, sent
+
+    def _round_impl(self, bx: torch.Tensor, by: torch.Tensor,
+                    plan: RoundPlan | None = None, act_idx=None) -> dict:
+        """One global round from the trained clients' batches (bx (rows,
+        H, B, ...), by (rows, H, B): all N clients under masked compute,
+        the ``act_idx`` slots under gathered). ``plan`` is the round's
+        RoundPlan (None: the scheduler's); ``act_idx`` the compacted
+        active ids (None: from the plan). Updates the engine state in
+        place and returns the round's device tensors: losses (N,; NaN
+        outside the round), the last-step gradients G of the trained
+        rows, idx (N, k) (None for dense), the aggregated gradient g_sum
         (d,), and the participation and age scalars."""
         hp, n, d = self.hp, self.n, self.d
-        plan = self._scheduler.plan(self.sched)
+        if plan is None:
+            plan = self._scheduler.plan(self.sched)
+        gathered = self._compute == "gathered"
+        if gathered and act_idx is None:
+            act_idx = self._compact(plan.active)
+        act = plan.active
         with record_function("local_phase"), strict_fp32():
-            _, opt_s, state_s, G, cands, losses = self._local_phase(
-                self.params_s, self.opt_s, self.state_s, bx, by)
+            if gathered:
+                rows = act_idx.clamp(max=n - 1)
+                _, opt_c, state_c, G, cands_c, losses_c = self._local_phase(
+                    C.broadcast_global(self.g_params, rows.shape[0]),
+                    C.take_rows(self.opt_s, rows),
+                    C.take_rows(self.state_s, rows), bx, by,
+                    None if self.ef_mem is None
+                    else self.ef_mem.index_select(0, rows))
+                opt_s = C.put_rows(self.opt_s, act_idx, opt_c)
+                state_s = C.put_rows(self.state_s, act_idx, state_c)
+                # clients outside the round never trained: NaN losses
+                losses = C.put_rows(torch.full((n,), float("nan"),
+                                               device=self.device),
+                                    act_idx, losses_c)
+                cands = (None if cands_c is None else C.put_rows(
+                    torch.zeros((n, hp.r), dtype=cands_c.dtype,
+                                device=self.device), act_idx, cands_c))
+            else:
+                _, opt_s, state_s, G, cands, losses = self._local_phase(
+                    self.params_s, self.opt_s, self.state_s, bx, by,
+                    self.ef_mem)
+                if not self._full:
+                    # clients outside the round hold their local state
+                    opt_s = C.where_rows(act, opt_s, self.opt_s)
+                    state_s = C.where_rows(act, state_s, self.state_s)
+                    losses = torch.where(act, losses, float("nan"))
             _write((self.opt_s, self.state_s), (opt_s, state_s))
 
         with record_function("select"):
-            idx, seg = self._select(G, cands, plan)
+            idx, seg = self._select(G, cands, plan, act_idx)
         with record_function("aggregate"):
+            vals, sent = self._upload(G, idx, plan, act_idx)
             if idx is None:
-                # dense: every taking part client uploads G in wire form
-                gw = G.to(self._wire_dtype).to(G.dtype)
-                g_sum = torch.where(plan.active.unsqueeze(1), gw, 0.0).sum(0)
-            else:
-                vals = G.gather(1, idx.to(torch.int64).clamp(max=d - 1))
-                vals = vals.to(self._wire_dtype).to(G.dtype)
-            if seg is not None:
+                g_sum = vals.sum(0)
+            elif seg is not None:
                 # the segmented layout feeds aggregation directly: padded
-                # member slots carry the sentinel index d, which the
-                # kernel drops
+                # member slots and unpacked inactive clients carry the
+                # sentinel index d, which the kernel drops
                 ok = (seg.members < n).unsqueeze(-1)
                 seg_vals = torch.where(
                     ok, vals[seg.members.clamp(max=n - 1).to(torch.int64)],
@@ -485,16 +652,27 @@ class FederatedEngine:
                 g_sum, _ = aggregate_sparse_fused(
                     seg.idx, seg_vals, torch.zeros(d, dtype=torch.int32,
                                                    device=self.device))
-            elif idx is not None:
+            else:
                 g_sum = aggregate_sparse(idx, vals, d)
+            if self.ef_mem is not None:
+                # what a client did not send is its next residual
+                # (optim.error_feedback.ef_update); clients outside the
+                # round hold theirs
+                ef_rows = G - sent
+                if gathered:
+                    ef_rows = C.put_rows(self.ef_mem, act_idx, ef_rows)
+                elif not self._full:
+                    ef_rows = C.where_rows(act, ef_rows, self.ef_mem)
+                _write(self.ef_mem, ef_rows)
         with record_function("global_update"):
             # params_s views g_params, so the clients see the new params
             _write((self.g_params, self.g_opt_state),
                    apply_global(self._g_opt, g_sum, self.g_params,
                                 self.g_opt_state))
 
-        aoi = torch.where(plan.active, 0, self.sched.aoi + 1)
-        _write(self.sched, SchedState(rnd=self.sched.rnd + 1, aoi=aoi))
+        aoi = torch.where(act, 0, self.sched.aoi + 1)
+        _write(self.sched, self.sched._replace(rnd=self.sched.rnd + 1,
+                                               aoi=aoi))
         live = torch.zeros(self.age.cluster_age.shape[0], dtype=torch.bool,
                            device=self.device).index_fill_(
             0, self.age.cluster_of.to(torch.int64), True)
@@ -504,7 +682,7 @@ class FederatedEngine:
             "G": G,
             "idx": idx,
             "g_sum": g_sum,
-            "n_active": plan.active.sum(),
+            "n_active": act.sum(),
             "aoi_mean": aoi.to(torch.float32).mean(),
             "aoi_peak": aoi.max(),
             "age_mean": (ca_live.to(torch.float32).sum()
@@ -514,15 +692,25 @@ class FederatedEngine:
 
     def _round(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The round body both drivers run (and a graph captures): the
-        draw, :meth:`_round_impl`, and the metrics the host reads, packed
-        into two flat device vectors: float32 [losses (N), aoi_mean,
-        age_mean] and int64 [n_active, aoi_peak, age_peak, idx (N * k)
-        (none for dense)]."""
+        plan, the draw, :meth:`_round_impl`, and the metrics the host
+        reads, packed into two flat device vectors: float32 [losses (N),
+        aoi_mean, age_mean] and int64 [n_active, aoi_peak, age_peak, idx
+        (N * k) (none for dense)]."""
+        plan = self._scheduler.plan(self.sched)
+        act_idx = (self._compact(plan.active)
+                   if self._compute == "gathered" else None)
         with record_function("draw"):
-            bx, by, samp = self._store.draw(self._data, self.samp,
-                                            self.hp.H)
+            if act_idx is not None:
+                bx, by, samp = self._store.draw_gathered(
+                    self._data, self.samp, self.hp.H, act_idx)
+            else:
+                bx, by, samp = self._store.draw(self._data, self.samp,
+                                                self.hp.H)
+                if not self._full:
+                    # clients outside the round leave their stream as is
+                    samp = C.where_rows(plan.active, samp, self.samp)
             _write(self.samp, samp)
-        m = self._round_impl(bx, by)
+        m = self._round_impl(bx, by, plan, act_idx)
         with record_function("metrics"):
             f = torch.cat([m["losses"].to(torch.float32),
                            torch.stack([m["aoi_mean"], m["age_mean"]])])
@@ -573,9 +761,12 @@ class FederatedEngine:
     # ------------------------------------------------------------------
     def _graph_key(self):
         """What a graph of the round bakes in that can change: the
-        segmented packing bounds (rage_k segmented), else nothing."""
+        segmented packing bounds (rage_k segmented; the member bound is
+        cut to the scheduler's m_bound, as :meth:`_select` packs), else
+        nothing."""
         if self.hp.method == "rage_k" and self._selection == "segmented":
-            return (self._num_seg, min(self._max_seg, self.n))
+            return (self._num_seg,
+                    min(self._max_seg, self._scheduler.m_bound))
         return None
 
     def _capture(self, key):

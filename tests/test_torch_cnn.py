@@ -37,6 +37,7 @@ try:
     from repro.fl.engine import FederatedEngine as JEngine
     from repro.models import paper_nets as JP
     from test_torch_engine import _one_round, _sparse_sum
+    from test_torch_participation import partial_rounds
 except ImportError:
     jax = None
 
@@ -397,6 +398,22 @@ def test_cnn_round_matches_reference_methods(jax_ref, cifar_data, method):
                                         kind="cnn")
     assert (tm["idx"] is None) == (method == "dense")
     _assert_round_matches(jeng, jm, jG, teng, tm)
+
+
+def test_cnn_gathered_round_matches_reference_masked(jax_ref, cifar_data):
+    """The port's gathered CNN round (grouped convolutions over the m = 2
+    active clients, their BatchNorm rows gathered and put back) against
+    the reference's masked round under the same plan, restricted to the
+    active rows: the reference's own gathered CNN round is not its
+    masked one (ROADMAP section 3, fault 5). Picks, ages and counts
+    exactly; losses (NaN outside the round), the new params and the
+    BatchNorm state (held outside the round) within the round's
+    tolerance."""
+    shards, test = cifar_data
+    _, teng, tm = partial_rounds(
+        "cnn", shards, test, CIFAR, active=[0, 1, 0, 0, 1, 0], m=2,
+        compute="masked", port_compute="gathered", tol=ROUND_TOL)
+    assert teng._compute == "gathered" and tm["G"].shape == (2, D)
 
 
 def test_cnn_random_k_round(cifar_data):

@@ -261,14 +261,12 @@ def test_no_silent_cpu(fig3_data, monkeypatch):
         FederatedEngine("mlp", shards, test, RAgeKConfig(**FIG3))
 
 
-@pytest.mark.parametrize("kw,hp", [
-    ({}, {"schedule": "aoi"}),
-    ({}, {"schedule": "deadline"}), ({"compute": "gathered"}, {}),
-    ({}, {"age_layout": "hierarchical"}), ({"ef": True}, {}),
-    ({"faults": object()}, {}), ({}, {"schedule": "uniform"})])
-def test_unported_options_raise(fig3_data, kw, hp):
+@pytest.mark.parametrize("kw,hp,item", [
+    ({}, {"age_layout": "hierarchical"}, "item 11"),
+    ({"faults": object()}, {}, "item 13")])
+def test_unported_options_raise(fig3_data, kw, hp, item):
     shards, test = fig3_data
     kw = {"kind": "mlp", **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         FederatedEngine(kw.pop("kind"), shards, test,
                         RAgeKConfig(**{**FIG3, **hp}), device="cpu", **kw)

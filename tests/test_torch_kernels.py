@@ -245,11 +245,13 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(10, 39_760), (3, 1000), (1, 4097),
-                                 (6, 2_515_338)])
+                                 (6, 2_515_338), (2, 39_760),
+                                 (2, 2_515_338)])
 def test_maghist_batch_kernel_matches_plain(cuda, n, d):
     """The histogram alone, then the report (two launches) on the same rows
     and on rows of one value, one binade and few magnitudes (the refine),
-    card against CPU exactly; r = 75, and the CIFAR r = 2,500 at its d."""
+    card against CPU exactly; r = 75, and the CIFAR r = 2,500 at its d;
+    also on the m = 2 rows of a gathered round."""
     G = torch.from_numpy(_grads(n, d, seed=d)).to(cuda)
     before = build.LAUNCHES["maghist_batch"]
     got = MH.maghist_batch(G)
@@ -307,6 +309,58 @@ def test_segmented_age_topk_kernel_matches_plain(cuda, C, S, r, k, disjoint):
             ST.segmented_age_topk(same, ages, ones, r, disjoint=disjoint),
             ST.segmented_age_topk_plain(same, ages, ones, r,
                                         disjoint=disjoint), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,S,r,k", [(5, 2, 75, 10), (3, 2, 2500, 100),
+                                     (2, 156, 75, 10)])
+@pytest.mark.parametrize("disjoint", [True, False])
+def test_segmented_age_topk_kernel_on_partial_packings(cuda, C, S, r, k,
+                                                       disjoint):
+    """A partial round's packing (``segment_pack`` with an active mask):
+    inactive members unpacked, a cluster with no active member (every
+    slot invalid, reading the clipped row N - 1), at fig3's and CIFAR's
+    shapes and past one block's shared memory; card == plain exactly."""
+    from repro_torch.core.strategies import segment_pack
+    rng = np.random.default_rng(C * S + k)
+    n = C * S
+    cluster_of = torch.arange(n) // S
+    active = torch.from_numpy(rng.random(n) < 0.6)
+    active[:S] = False                          # cluster 0: nobody
+    active[S] = True
+    members = segment_pack(cluster_of, C, S, active).to(cuda)
+    valid = members < n
+    assert not valid[0].any() and valid.any()
+    cands = torch.from_numpy(np.stack([rng.choice(3 * r, r, replace=False)
+                                       for _ in range(n)])).to(cuda)
+    seg_cand = cands[members.clamp(max=n - 1).long()]
+    ages = torch.from_numpy(rng.integers(0, 4, (C, S, r))).int().to(cuda)
+    for cand in (seg_cand, seg_cand.int()):
+        got = ST.segmented_age_topk(cand, ages, valid, k, disjoint=disjoint)
+        want = ST.segmented_age_topk_plain(cand, ages, valid, k,
+                                           disjoint=disjoint)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(10, 10, 39_760), (6, 100, 2_515_338)])
+def test_sparse_aggregate_kernel_on_sentinel_rows(cuda, n, k, d):
+    """A partial round's uploads: half of the clients' rows at the
+    sentinel d with zero values, the others staleness-weighted; bitwise
+    the upload-order sum, ages equal to the plain version's."""
+    rng = np.random.default_rng(d)
+    idx = np.stack([rng.choice(d, k, replace=False) for _ in range(n)])
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    vals[1] *= 0.5
+    idx[n // 2:], vals[n // 2:] = d, 0.0
+    idx, vals = idx.reshape(-1).astype(np.int32), vals.reshape(-1)
+    age = rng.integers(0, 30, d).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, vals, age)]
+    dense, new_age = SA.sparse_aggregate(*args)
+    torch.testing.assert_close(new_age, SA.sparse_aggregate_plain(*args)[1],
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(dense.cpu().numpy(),
+                                  _upload_order_sum(idx, vals, d))
 
 
 @pytest.mark.cuda

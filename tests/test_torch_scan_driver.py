@@ -387,3 +387,34 @@ def test_card_run_scanned_replays_graphs(cuda, mnist_setup):
     assert la == lb and lb["segmented_age_topk"] == ROUNDS
     _assert_same(ea, ra, eb, rb)
     eb.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hp,kw", [
+    ({"schedule": "uniform", "participation_m": 2}, {}),
+    ({"schedule": "aoi", "participation_m": 3}, {"ef": True}),
+    ({"schedule": "deadline"}, {}),
+    ({"schedule": "uniform", "participation_m": 4, "method": "rtop_k"}, {})])
+def test_card_partial_run_scanned_equals_run(cuda, mnist_setup, hp, kw):
+    """The participation and compute planes on the card: a partial run
+    (gathered under uniform and aoi, masked under deadline) replayed as
+    graphs equals the stepped run bitwise, every round launching its
+    method's kernels once each, on the m gathered rows."""
+    shards, test = mnist_setup
+    cfg = RAgeKConfig(**{**HP, "eps": 0.8, **hp})
+    out = []
+    for driver in ("run", "run_scanned"):
+        eng = FederatedEngine("mlp", shards, test, cfg, seed=3, device=cuda,
+                              **kw)
+        build.reset_launches()
+        res = getattr(eng, driver)(ROUNDS, eval_every=EVAL_EVERY)
+        out.append((eng, res, dict(build.LAUNCHES)))
+    (ea, ra, la), (eb, rb, lb) = out
+    assert eb._graphs and la == lb
+    assert la["sparse_aggregate"] == la["maghist_batch"] == ROUNDS
+    assert ea._compute == ("masked" if hp["schedule"] == "deadline"
+                           else "gathered")
+    _assert_same(ea, ra, eb, rb)
+    if kw.get("ef"):
+        assert torch.equal(ea.ef_mem, eb.ef_mem)
+    eb.close()
