@@ -81,6 +81,32 @@ the last line:
    local step, the busy share), one gathered round card == CPU at
    batch 32, H 1, and rAge-k with error feedback chunked == stepwise
    under ``device.deterministic()``;
+6i. hier fig3: the hierarchical age layout at fig3 with M 5 (two
+   boundaries that change the cluster count): every method, rAge-k's
+   sequential plane and uniform m 2 (gathered), dense and hierarchical
+   from one seed through both drivers, bitwise equal (losses, picks,
+   labels, the frequency matrix, params, the live age rows), every
+   round's launches, the age rows following C, a hierarchical chunk
+   with no host sync; one hierarchical round card == CPU (full and
+   uniform m 2; the log ring exactly);
+6j. resume: fig3 rAge-k dense and hierarchical and rTop-k, 20 rounds
+   chunked saving every 5, resumed at round 10 in fresh engines through
+   each driver, bitwise the uninterrupted run; bytes on disk, the
+   caller's blocking time of a save (async and blocking), and the rate
+   with a save every 4 rounds (none, async, blocking, in turns);
+6k. age memory: engine_bench's grouped shards at N 64, 256 and 1,024
+   (r 16, k 4, H 1, M 3, batch 8): the age plane's device bytes, dense
+   and hierarchical, at init and after the first compaction, the
+   allocator across it, the boundary's pull against
+   ``clustering_input_bytes`` and its wall (drain, DBSCAN, apply,
+   recapture), the chunked rate after it in turns, and
+   ``segmented_age_topk`` at N 1,024's packing, kernel == plain;
+6l. fig5 hier (after 6h): 20 rAge-k rounds at H 10, M 10 chunked, dense
+   and hierarchical: the labels at each recluster equal, the
+   boundary's pull and wall both ways, every round's launches;
+6m. fig5 resume: hierarchical at H 10, M 2 under
+   ``device.deterministic()``, 8 rounds saving at 4, resumed there,
+   bitwise; the entry's bytes and a save's blocking time;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -115,6 +141,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1272,7 +1299,9 @@ def same_run(torch, ea, ra, eb, rb) -> list:
                 **{f"opt_s.{i}": t for i, t in enumerate(e.opt_s)},
                 **{f"bn.{i}": t
                    for i, t in enumerate(C.tree_leaves(e.state_s))},
-                **e.age._asdict(), **e.samp._asdict(), **e.sched._asdict()}
+                **{k: t for k, t in e.age._asdict().items()
+                   if t is not None},
+                **e.samp._asdict(), **e.sched._asdict()}
     sa, sb = state(ea), state(eb)
     bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
     if (ea.ef_mem is None) != (eb.ef_mem is None) or (
@@ -1596,7 +1625,7 @@ def phase_cifar_chunked(torch, shards, test, profile: bool):
         **{**FIG5, **FIG5_CUT, "M": 2, "eps": 1.0}), seed=0)
     launches, res, dt = drive_chunked(torch, one, 4, path, 2)
     add(launches)
-    if (1, one.n) not in one._graphs:
+    if (one.n, 1, one.n) not in one._graphs:        # (rows, C, S)
         raise AssertionError(f"eps 1.0 chunked: graphs {list(one._graphs)}, "
                              f"labels {one.cluster_of.tolist()}")
     say(f"cifar chunked: one cluster (M 2, eps 1.0): graphs "
@@ -2563,6 +2592,516 @@ def phase_long_decode(torch, dev, cfg=None):
     return launches
 
 
+# fig3 under the hierarchical layout: M 5, so that the reclusters at rounds
+# 5 and 10 both change the live cluster count; rage_k runs 15 rounds (three
+# boundaries), the other paths 5
+HIER_FIG3 = dict(FIG3, M=5)
+HIER_PATHS = [("rage_k", "segmented", 15), ("rage_k", "scan", 10),
+              ("rtop_k", "segmented", 5), ("cafe", "segmented", 5),
+              ("top_k", "segmented", 5), ("random_k", "segmented", 5),
+              ("dense", "segmented", 5)]
+# engine_bench's age-memory setting: N grouped shards of 8 samples in 4
+# label groups, r 16, k 4, H 1, M 3, batch 8, lr 2e-3
+AGE_BENCH = dict(r=16, k=4, H=1, M=3, lr=2e-3, batch_size=8)
+AGE_BENCH_N = (64, 256, 1024)
+# resume: fig3 at HIER_FIG3 for 20 rounds, saved every 5, resumed at 10
+RESUME_FIG3 = (20, 5, 10)
+
+
+def layouts_differ(torch, ea, ra, eb, rb) -> list:
+    """What differs, bitwise, between a dense run and a hierarchical one:
+    the FLResult columns, the frequency matrix, the labels, the params
+    and the live age rows. Empty when equal."""
+    import numpy as np
+
+    bad = [key for key in ("rounds", "loss", "acc", "uplink_bytes",
+                           "n_active", "aoi_mean", "aoi_peak", "age_mean",
+                           "age_peak") if getattr(ra, key) != getattr(rb, key)]
+    if not all((a is None and b is None) or np.array_equal(a, b)
+               for a, b in zip(ra.requested, rb.requested, strict=True)):
+        bad.append("requested")
+    if not all(np.array_equal(a, b) for a, b in
+               zip(ra.cluster_labels, rb.cluster_labels, strict=True)):
+        bad.append("cluster_labels")
+    if not np.array_equal(ea.freq_matrix, eb.freq_matrix):
+        bad.append("freq_matrix")
+    if not torch.equal(ea.g_params, eb.g_params):
+        bad.append("g_params")
+    live = int(ea.cluster_of.max()) + 1
+    if not torch.equal(ea.age.cluster_age[:live], eb.age.cluster_age[:live]):
+        bad.append("cluster_age")
+    return bad
+
+
+def phase_hier_fig3(torch, dev, shards, test):
+    """The hierarchical age layout at fig3 (``HIER_FIG3``): each of
+    ``HIER_PATHS`` dense and hierarchical from one seed, through ``run``
+    and ``run_scanned``, bitwise equal (losses, picks, labels, the
+    frequency matrix, params, the live age rows), every round launching
+    exactly its method's kernels (``drive_chunked``); the rAge-k run's
+    cluster count at each boundary, the age rows following it; a
+    hierarchical chunk of replays with no host sync. Then one
+    hierarchical round card == CPU from the same params and batches
+    (picks, ages, the log ring, ``upload_cost`` exactly), and uniform m 2
+    (gathered) likewise. Returns the hierarchical runs' launch counts."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+
+    total = {}
+    cases = [(m, s, r, {}) for m, s, r in HIER_PATHS]
+    cases.append(("rage_k", "segmented", 15,
+                  {"schedule": "uniform", "participation_m": 2}))
+    for method, selection, rounds, part in cases:
+        name = f"{method}/{selection}" + (" uniform m 2" if part else "")
+        for driver in ("run", "run_scanned"):
+            out = {}
+            for layout in ("dense", "hierarchical"):
+                hp = RAgeKConfig(**HIER_FIG3, method=method,
+                                 age_layout=layout, **part)
+                eng = FederatedEngine("mlp", shards, test, hp, seed=0,
+                                      selection=selection)
+                launches, res, dt = drive_chunked(
+                    torch, eng, rounds, (method, selection), 5,
+                    driver=driver)
+                if layout == "hierarchical":
+                    for k, v in launches.items():
+                        total[k] = total.get(k, 0) + v
+                out[layout] = (eng, res, dt)
+            (ed, rd, td), (eh, rh, th) = out["dense"], out["hierarchical"]
+            bad = layouts_differ(torch, ed, rd, eh, rh)
+            if bad:
+                raise AssertionError(f"hier fig3 {name} {driver}: the "
+                                     f"layouts differ in {bad}")
+            counts = [int(c.max()) + 1 for c in rh.cluster_labels]
+            rows = eh.age.cluster_age.shape[0]
+            extra = ""
+            if method == "rage_k":
+                if rows != counts[-1] or (not part and (
+                        counts[0] == eh.n or counts[1] == counts[0])):
+                    raise AssertionError(
+                        f"hier fig3 {name}: cluster counts {counts}, age "
+                        f"rows {rows}; two boundaries must change C")
+                extra = (f"; log_ptr {int(eh.age.log_ptr)}, drained "
+                         f"{eh.pull_bytes['clustering_input']} B against "
+                         f"dense {ed.pull_bytes['clustering_input']} B")
+            if driver == "run_scanned" and selection == "segmented" and (
+                    method == "rage_k"):
+                sync_free_chunk(torch, eh, 5)
+                extra += "; 5 replays under set_sync_debug_mode('error')"
+            say(f"hier fig3: {name} {driver}, {rounds} rounds: hierarchical "
+                f"== dense bitwise (losses, picks, labels, freq_matrix, "
+                f"params, live age rows); C after each eval {counts}, age "
+                f"rows {rows}, device bytes {eh.age.device_bytes} against "
+                f"{ed.age.device_bytes}; {th * 1e3:.1f} ms against "
+                f"{td * 1e3:.1f} (captures included){extra}")
+            for e in (ed, eh):
+                e.close()
+    # one hierarchical round card == CPU, full and uniform m 2
+    tol = dict(rtol=1e-4, atol=1e-6)
+    for part in ({}, {"schedule": "uniform", "participation_m": 2}):
+        hp = RAgeKConfig(**HIER_FIG3, age_layout="hierarchical", **part)
+        card, cpu = (FederatedEngine("mlp", shards, test, hp, seed=0,
+                                     device=where) for where in (dev, "cpu"))
+        plan = card._scheduler.plan(card.sched)
+        act_idx = (card._compact(plan.active)
+                   if card._compute == "gathered" else None)
+        if act_idx is None:
+            bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
+        else:
+            bx, by, _ = card._store.draw_gathered(card._data, card.samp,
+                                                  hp.H, act_idx)
+        mc = card._round_impl(bx, by, plan, act_idx)
+        mh = cpu._round_impl(bx.cpu(), by.cpu(), _plan_to(plan, "cpu"),
+                             None if act_idx is None else act_idx.cpu())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(mc["losses"].cpu(), mh["losses"],
+                                   equal_nan=True, **tol)
+        torch.testing.assert_close(card.g_params.cpu(), cpu.g_params, **tol)
+        for field in ("cluster_age", "cluster_of", "upload_cost", "log_idx",
+                      "log_mem", "log_ptr"):
+            if not torch.equal(getattr(card.age, field).cpu(),
+                               getattr(cpu.age, field)):
+                raise AssertionError(f"hier parity {part}: {field} differs")
+        if not torch.equal(mc["idx"].cpu(), mh["idx"]):
+            raise AssertionError(f"hier parity {part}: picks differ")
+        say(f"hier parity: one fig3 hierarchical rage_k round "
+            f"{part or 'full'} ({card._compute}) card == CPU (picks, ages, "
+            f"log ring and pointer, upload_cost exact)")
+    return total
+
+
+def age_bench_shards(n: int):
+    """engine_bench's grouped shards: 8 samples a client in 4 label groups
+    whose features are offset by the label, so DBSCAN merges."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shards = []
+    for i in range(n):
+        lab = i % 4
+        x = rng.normal(size=(8, 28 * 28)).astype(np.float32) + lab
+        shards.append((x, np.full((8,), lab, np.int64)))
+    xte = rng.normal(size=(64, 28 * 28)).astype(np.float32)
+    yte = rng.integers(0, 10, size=(64,)).astype(np.int64)
+    return shards, (xte, yte)
+
+
+def boundary_wall(torch, eng) -> dict:
+    """One recluster boundary of ``eng``, driven by hand after M chunked
+    rounds, each part on the host's clock: the log's drain, the DBSCAN
+    and merge, the apply (the new rows uploaded), and the first round
+    after it (a capture where the age rows changed) against a replay."""
+    walls = {}
+    t0 = time.perf_counter()
+    eng._drain_freq_log()
+    walls["drain_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    (new_ca, labels), _ = eng._recluster_work()()
+    walls["dbscan_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eng._apply_recluster(new_ca, labels)
+    torch.cuda.synchronize()
+    walls["apply_ms"] = (time.perf_counter() - t0) * 1e3
+    walls["allocated"] = torch.cuda.memory_allocated()
+    walls["graphs_after_apply"] = len(eng._graphs)
+    for key in ("next_round_ms", "replay_ms"):
+        t0 = time.perf_counter()
+        eng._chunk(1)
+        torch.cuda.synchronize()
+        walls[key] = (time.perf_counter() - t0) * 1e3
+    return walls
+
+
+def phase_age_memory(torch, dev):
+    """The age plane at engine_bench's sizes (``AGE_BENCH``, N in
+    ``AGE_BENCH_N``, nothing cut): ``device_bytes`` dense and hierarchical
+    at init and after the first compaction (the C reached), the
+    allocator's bytes before and after it (no N-row age buffer left), the
+    boundary's device->host bytes against ``clustering_input_bytes``, and
+    its wall (drain, DBSCAN, apply, the recapture) both ways. At N 256
+    and 1,024 the chunked ms a round, both layouts in turns after their
+    compaction; at N 1,024 ``segmented_age_topk`` at the packing reached,
+    kernel against plain. Returns (launch counts, the selection's record
+    at N 1,024)."""
+    import numpy as np
+
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core.compression import clustering_input_bytes
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segmented_topk as ST
+
+    total, seg_rec = {}, None
+    for n in AGE_BENCH_N:
+        shards, test = age_bench_shards(n)
+        engines = {}
+        for layout in ("dense", "hierarchical"):
+            hp = RAgeKConfig(**AGE_BENCH, age_layout=layout)
+            torch.cuda.synchronize()
+            eng = FederatedEngine("mlp", shards, test, hp, seed=0)
+            init_b = eng.age.device_bytes
+            build.reset_launches()
+            eng._chunk(hp.M)                      # rounds 1-3, captured
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            if launches != {k: hp.M * PER_ROUND[("rage_k", "segmented")]
+                            .get(k, 0) for k in launches}:
+                raise AssertionError(f"age memory N {n} {layout}: "
+                                     f"{launches} in {hp.M} rounds")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            eng.round_idx = hp.M
+            before = torch.cuda.memory_allocated()
+            walls = boundary_wall(torch, eng)
+            after = walls["allocated"]
+            c = int(eng.cluster_of.max()) + 1
+            rows = eng.age.cluster_age.shape[0]
+            if any(key[0] != rows for key in eng._graphs):
+                raise AssertionError(f"age memory N {n} {layout}: a graph "
+                                     f"of another row count survived: "
+                                     f"{list(eng._graphs)}")
+            want = clustering_input_bytes(eng.d, n, k=hp.k, M=hp.M,
+                                          layout=layout)
+            got = eng.pull_bytes["clustering_input"]
+            if got != want:
+                raise AssertionError(f"age memory N {n} {layout}: pulled "
+                                     f"{got} B, clustering_input_bytes "
+                                     f"{want}")
+            if layout == "hierarchical" and not (rows == c < n):
+                raise AssertionError(f"age memory N {n}: {rows} age rows "
+                                     f"for C {c}")
+            say(f"age memory: N {n} {layout}: device_bytes {init_b} at init, "
+                f"{eng.age.device_bytes} after the first compaction (C {c}, "
+                f"age rows {rows}, {eng.age.device_bytes / init_b:.4f} of "
+                f"init); allocated {before} -> {after} B across the apply "
+                f"(graphs left {walls['graphs_after_apply']}); its pull: clustering input {got} B "
+                f"(== clustering_input_bytes), age rows "
+                f"{eng.pull_bytes['age_rows']} B; wall: drain "
+                f"{walls['drain_ms']:.3f} ms, DBSCAN+merge "
+                f"{walls['dbscan_ms']:.3f}, apply {walls['apply_ms']:.3f}, "
+                f"next round {walls['next_round_ms']:.3f} (capture "
+                f"{'yes' if rows != n else 'no'}), a replay "
+                f"{walls['replay_ms']:.3f}")
+            engines[layout] = eng
+        if n >= 256:
+            rounds = 20
+            times = {k: [] for k in engines}
+            for key in ("dense", "hierarchical", "hierarchical", "dense"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engines[key]._chunk(rounds)
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - t0) * 1e3 / rounds)
+            say(f"age memory: N {n} chunked ms a round after the "
+                f"compaction, in turns: " + "; ".join(
+                    f"{k} " + ", ".join(f"{t:.3f}" for t in v)
+                    for k, v in times.items()))
+        if n == AGE_BENCH_N[-1]:
+            eng = engines["hierarchical"]
+            C, S = eng._num_seg, eng._max_seg
+            r, k = AGE_BENCH["r"], AGE_BENCH["k"]
+            gen = torch.Generator(device=dev).manual_seed(5)
+            cand = torch.randint(0, eng.d, (C, S, r), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            age = torch.randint(0, 4, (C, S, r), generator=gen, device=dev,
+                                dtype=torch.int32)
+            sizes = torch.from_numpy(np.bincount(eng.cluster_of)).to(dev)
+            valid = torch.arange(S, device=dev) < sizes.unsqueeze(1)
+            got = ST.segmented_age_topk(cand, age, valid, k)
+            want = ST.segmented_age_topk_plain(cand, age, valid, k)
+            if not torch.equal(got, want):
+                raise AssertionError(f"segmented_age_topk at ({C}, {S}): "
+                                     f"kernel != plain")
+            b, by = bound(4 * (2 * C * S * r + C * S + C * S * k),
+                          C * S * k * r)
+            seg_rec = dict(N=n, C=C, S=S, r=r, k=k, path=ST.layout(
+                S, r, k)["path"], ms=device_ms(
+                lambda: ST.segmented_age_topk(cand, age, valid, k)),
+                plain_ms=device_ms(lambda: ST.segmented_age_topk_plain(
+                    cand, age, valid, k), reps=3, warmup=1),
+                bound_ms=b, bound_by=by)
+            say(f"age memory: segmented_age_topk at N {n}'s packing (C "
+                f"{C}, S {S}, r {r}, k {k}, path {seg_rec['path']}): kernel "
+                f"== plain; kernel {seg_rec['ms']:.4f} ms, plain "
+                f"{seg_rec['plain_ms']:.4f}, bound {b:.7f} ({by})")
+        for e in engines.values():
+            e.close()
+        del engines
+        torch.cuda.empty_cache()
+    return total, seg_rec
+
+
+def phase_fig5_hier(torch, shards, test):
+    """fig5 at BENCH_FULL widths under the hierarchical layout: 20 rAge-k
+    rounds at H 10, M 10 (``FIG5_CUT``) through ``run_scanned``, dense and
+    hierarchical from one seed: the labels at each recluster equal, the
+    boundary's pull (the (N, d) counts against the log's bytes, and the
+    age rows), its wall both ways, the captures, and every round's
+    launches. Returns the hierarchical run's launch counts."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core.compression import clustering_input_bytes
+    from repro_torch.fl.engine import FederatedEngine
+
+    out, launches = {}, None
+    for layout in ("dense", "hierarchical"):
+        hp = RAgeKConfig(**{**FIG5, **FIG5_CUT}, age_layout=layout)
+        eng = FederatedEngine("cnn", shards, test, hp, seed=0)
+        counts, res, dt = drive_chunked(torch, eng, 20, ("rage_k",
+                                                         "segmented"), 10)
+        if layout == "hierarchical":
+            launches = counts
+        out[layout] = (eng, res, dt)
+        want = 2 * clustering_input_bytes(eng.d, eng.n, k=hp.k, M=hp.M,
+                                          layout=layout)
+        say(f"fig5 hier: {layout}, 20 rounds at H 10, M 10 chunked: "
+            f"{dt:.2f} s; labels {[c.tolist() for c in res.cluster_labels]}; "
+            f"age rows {eng.age.cluster_age.shape[0]}, device_bytes "
+            f"{eng.age.device_bytes}; the two boundaries pulled "
+            f"clustering input {eng.pull_bytes['clustering_input']} B "
+            f"(clustering_input_bytes x 2 = {want}) and age rows "
+            f"{eng.pull_bytes['age_rows']} B; recluster {eng.recluster_s:.3f}"
+            f" s on the worker, {eng.recluster_wait_s:.3f} s waited; "
+            f"captures {eng.capture_s:.3f} s, graphs "
+            f"{sorted(eng._graphs, key=str)}")
+        if eng.pull_bytes["clustering_input"] != want:
+            raise AssertionError(f"fig5 hier {layout}: boundary pull")
+    (ed, rd, _), (eh, rh, _) = out["dense"], out["hierarchical"]
+    for a, b in zip(rd.cluster_labels, rh.cluster_labels, strict=True):
+        if a.tolist() != b.tolist():
+            raise AssertionError(f"fig5 hier: labels {b.tolist()} against "
+                                 f"dense {a.tolist()}")
+    same = rd.loss == rh.loss and all(
+        (a == b).all() for a, b in zip(rd.requested, rh.requested))
+    say(f"fig5 hier: labels equal at every recluster; losses and picks "
+        f"{'bitwise equal' if same else 'not bitwise (cuDNN defaults)'}")
+    for e in (ed, eh):
+        e.close()
+    return launches
+
+
+def _resumed(torch, make, path, step, driver, rounds, eval_every):
+    """A fresh engine from ``make()`` resumed from ``path`` at ``step`` and
+    driven ``rounds`` more by ``driver``: (engine, FLResult)."""
+    eng = make()
+    prior = eng.load_state(path, step=step)
+    res = getattr(eng, driver)(rounds, eval_every=eval_every, result=prior)
+    torch.cuda.synchronize()
+    return eng, res
+
+
+def phase_resume(torch, shards, test, scratch):
+    """Checkpoint and resume at fig3 (``HIER_FIG3``): rAge-k dense and
+    hierarchical and rTop-k, 20 rounds chunked saving every 5 through the
+    async writer, then fresh engines resumed at round 10 through each
+    driver (rTop-k chunked), bitwise the uninterrupted run (FLResult,
+    every state buffer). Then the bytes on disk, the blocking time of a
+    save (async and blocking), and fig3 rAge-k's rate chunked with no
+    checkpoint, with the async writer and with the blocking one at
+    ``ckpt_every`` 4 and 20, in turns (a second save joins the write in
+    flight, so where writes outlast four rounds the async writer paces
+    the run as the blocking one does). Returns the resumed runs' launch
+    counts."""
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import build
+
+    rounds, every, at = RESUME_FIG3
+    total = {}
+    for method, layout, drivers in (
+            ("rage_k", "dense", ("run", "run_scanned")),
+            ("rage_k", "hierarchical", ("run", "run_scanned")),
+            ("rtop_k", "dense", ("run_scanned",))):
+        hp = RAgeKConfig(**HIER_FIG3, method=method, age_layout=layout)
+
+        def make():
+            return FederatedEngine("mlp", shards, test, hp, seed=0)
+        path = os.path.join(scratch, f"fig3_{method}_{layout}")
+        ref = make()
+        with AsyncCheckpointer(path, keep=0) as ck:
+            rr = ref.run_scanned(rounds, eval_every=every, checkpointer=ck,
+                                 ckpt_every=every)
+        for driver in drivers:
+            build.reset_launches()
+            eng, res = _resumed(torch, make, path, at, driver,
+                                rounds - at, every)
+            for k, v in build.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+            bad = same_run(torch, ref, rr, eng, res)
+            if not np_equal(ref.freq_matrix, eng.freq_matrix):
+                bad.append("freq_matrix")
+            if bad:
+                raise AssertionError(f"resume fig3 {method} {layout} "
+                                     f"{driver}: differs in {bad}")
+            say(f"resume: fig3 {method} {layout}, saved every {every} "
+                f"chunked, resumed at {at} by {driver}: bitwise the "
+                f"uninterrupted {rounds} rounds (losses, picks, labels, "
+                f"params, ages, every state buffer); labels "
+                f"{res.cluster_labels[-1].tolist()}")
+            eng.close()
+        ref.close()
+    # what a save costs
+    hp = RAgeKConfig(**FIG3)
+    eng = FederatedEngine("mlp", shards, test, hp, seed=0)
+    eng.run_scanned(4, eval_every=4)
+    for blocking in (False, True):
+        path = os.path.join(scratch, f"fig3_save_{blocking}")
+        with AsyncCheckpointer(path, keep=1, blocking=blocking) as ck:
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.save_state(ck)
+                ts.append((time.perf_counter() - t0) * 1e3)
+                ck.wait()
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        say(f"resume: a fig3 save {'blocking' if blocking else 'async'}: "
+            f"{size} B on disk; the caller blocked "
+            + ", ".join(f"{t:.2f}" for t in ts) + " ms")
+    eng.close()
+    # the rate with a save every 4 and every 20 rounds, in turns
+    every_of = {"none": 0, "async 4": 4, "blocking 4": 4, "async 20": 20,
+                "blocking 20": 20}
+    engines = {v: FederatedEngine("mlp", shards, test, hp, seed=0)
+               for v in every_of}
+    ckpts = {v: AsyncCheckpointer(os.path.join(scratch, f"rate_{i}"),
+                                  keep=2, blocking=v.startswith("blocking"))
+             for i, v in enumerate(every_of) if every_of[v]}
+    for v, e in engines.items():
+        e.run_scanned(24, eval_every=100)     # past the first recluster
+    times = {v: [] for v in engines}
+    for v in list(every_of) * 2 + list(reversed(every_of)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[v].run_scanned(20, eval_every=100, checkpointer=ckpts.get(v),
+                               ckpt_every=every_of[v])
+        if v in ckpts:
+            ckpts[v].wait()
+        torch.cuda.synchronize()
+        times[v].append(20 / (time.perf_counter() - t0))
+    say("resume: fig3 rage_k chunked, 20-round windows in turns, rounds/s "
+        "with no save, and a save every 4 and every 20 rounds: " + "; ".join(
+            f"{v} " + ", ".join(f"{t:.1f}" for t in ts)
+            for v, ts in times.items()))
+    for v in ckpts.values():
+        v.close()
+    for e in engines.values():
+        e.close()
+    return total
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(a, b))
+
+
+def phase_fig5_resume(torch, shards, test, scratch):
+    """fig5 hierarchical at H 10, M 2 (``FIG5_DET``) under
+    ``device.deterministic()``: 8 rounds chunked saving at 4, a fresh
+    engine resumed there for 4 more, bitwise the uninterrupted run; the
+    bytes on disk and the caller's blocking time of one save. Returns the
+    resumed run's launch counts."""
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.device import deterministic
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.kernels import build
+
+    hp = RAgeKConfig(**{**FIG5, **FIG5_DET}, age_layout="hierarchical")
+
+    def make():
+        return FederatedEngine("cnn", shards, test, hp, seed=0)
+    path = os.path.join(scratch, "fig5_hier")
+    with deterministic():
+        ref = make()
+        with AsyncCheckpointer(path, keep=0) as ck:
+            rr = ref.run_scanned(8, eval_every=4, checkpointer=ck,
+                                 ckpt_every=4)
+        block_ms = {}
+        for blocking in (False, True):
+            with AsyncCheckpointer(path + f"_{blocking}", keep=1,
+                                   blocking=blocking) as ck:
+                t0 = time.perf_counter()
+                ref.save_state(ck)
+                block_ms[blocking] = (time.perf_counter() - t0) * 1e3
+            shutil.rmtree(path + f"_{blocking}")
+        build.reset_launches()
+        eng, res = _resumed(torch, make, path, 4, "run_scanned", 4, 4)
+        launches = dict(build.LAUNCHES)
+    bad = same_run(torch, ref, rr, eng, res)
+    if bad:
+        raise AssertionError(f"fig5 resume: differs in {bad}")
+    size = os.path.getsize(os.path.join(path, "ckpt_00000004.npz"))
+    say(f"fig5 resume: hierarchical rage_k at H 10, M 2 under "
+        f"deterministic(), resumed at round 4: bitwise the uninterrupted 8 "
+        f"rounds; labels {res.cluster_labels[-1].tolist()}, age rows "
+        f"{eng.age.cluster_age.shape[0]}; an entry is {size} B on disk; "
+        f"a save blocked the caller {block_ms[False]:.1f} ms async (no "
+        f"write in flight), {block_ms[True]:.1f} ms blocking")
+    for e in (ref, eng):
+        e.close()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2615,7 +3154,12 @@ def main() -> int:
     phase_partial_parity(torch, dev, shards, test)
     partial = phase_partial_slice(torch, shards, test)
     compute = phase_compute_plane(torch)
+    hier = phase_hier_fig3(torch, dev, shards, test)
+    scratch = os.path.join(ROOT, "build", "ckpt_smoke")
+    shutil.rmtree(scratch, ignore_errors=True)
+    resume = phase_resume(torch, shards, test, scratch)
     del shards, test, x, y
+    age_mem, seg_bench = phase_age_memory(torch, dev)
 
     t0 = time.perf_counter()
     (x, y), test = cifar10_like(n_train=50_000, n_test=10_000, seed=0)
@@ -2628,6 +3172,9 @@ def main() -> int:
     cifar, real = phase_cifar_slice(torch, dev, shards, test, profile)
     cifar_chunked = phase_cifar_chunked(torch, shards, test, profile)
     fig5_partial = phase_fig5_partial(torch, dev, shards, test)
+    fig5_hier = phase_fig5_hier(torch, shards, test)
+    fig5_resume = phase_fig5_resume(torch, shards, test, scratch)
+    shutil.rmtree(scratch, ignore_errors=True)
     del shards, test
     torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
@@ -2638,8 +3185,11 @@ def main() -> int:
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
-            launches, base, chunked, partial, compute, cifar, cifar_chunked,
-            fig5_partial, smoke, serve, long))
+            launches, base, chunked, partial, compute, hier, resume,
+            age_mem, cifar, cifar_chunked, fig5_partial, fig5_hier,
+            fig5_resume, smoke, serve, long))
+        if k["name"] == "segmented_age_topk":
+            k["age_bench_packing"] = seg_bench
         if k["name"] in real:
             k["cifar_real_gradients"] = real[k["name"]]
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,33 @@
 """Client clustering (paper §II eq. 3 + DBSCAN): the port's numpy copy of
-``repro.core.clustering`` for the dense age layout."""
+``repro.core.clustering``.
+
+The eq.-(3) input is the (N, d) request-frequency matrix. Under the dense
+age layout it lives on the device and comes down whole every M rounds;
+under the hierarchical layout the device keeps a ring of the per-round
+requested indices and the host rebuilds the same matrix with
+:func:`fold_request_log`."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def fold_request_log(freq: np.ndarray, members: np.ndarray,
+                     indices: np.ndarray, *, n_clients: int,
+                     d: int) -> np.ndarray:
+    """Fold drained request-log slots into the cumulative (N, d) frequency
+    matrix. ``members`` (..., m) int32 requesting client ids, sentinel
+    ``n_clients`` for padded slots; ``indices`` (..., m, k) int32
+    requested coordinates, sentinel ``d`` for no request. Every pair below
+    the sentinels counts one request, as the dense layout's device
+    scatter does. Mutates and returns ``freq``."""
+    mem = np.asarray(members).reshape(-1)
+    idx = np.asarray(indices).reshape(mem.shape[0], -1)
+    ok = mem < n_clients
+    rows = np.repeat(mem[ok], idx.shape[1])
+    cols = idx[ok].reshape(-1)
+    keep = cols < d
+    np.add.at(freq, (rows[keep], cols[keep]), 1)
+    return freq
 
 
 def similarity_matrix(freq: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Uplink byte accounting: the port's copy of ``bytes_per_index``,
-``value_bytes_of`` and ``bytes_per_round`` from
-``repro.core.compression``."""
+``value_bytes_of``, ``bytes_per_round`` and ``clustering_input_bytes``
+from ``repro.core.compression``."""
 from __future__ import annotations
 
 import math
@@ -46,3 +46,26 @@ def bytes_per_round(k: int, d: int, value_bytes: int | None = None,
     if m_active < 0:
         raise ValueError(f"m_active must be >= 0, got {m_active}")
     return m_active * per_client
+
+
+def clustering_input_bytes(d: int, n_clients: int, *, k: int = 0,
+                           M: int = 1, m_active: int | None = None,
+                           layout: str = "dense") -> int:
+    """Device->host bytes of the every-M clustering input (eq. 3) per
+    recluster boundary. ``'dense'``: the whole (N, d) int32 frequency
+    matrix, N·d·4 bytes. ``'hierarchical'``: the request log of the
+    window, M slots of m participants' k indices and member id, int32:
+    M·m·(k+1)·4 bytes. ``m_active`` is the scheduler's participant bound
+    (None: every client)."""
+    if layout == "dense":
+        return n_clients * d * 4
+    if layout != "hierarchical":
+        raise ValueError(f"layout must be 'dense' or 'hierarchical', "
+                         f"got {layout!r}")
+    if M < 1 or k < 0:
+        raise ValueError(f"need M >= 1 and k >= 0, got M={M}, k={k}")
+    m = n_clients if m_active is None else m_active
+    if m < 0 or m > n_clients:
+        raise ValueError(f"m_active must be in [0, N={n_clients}], "
+                         f"got {m_active}")
+    return M * m * (k + 1) * 4

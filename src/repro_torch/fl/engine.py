@@ -1,13 +1,16 @@
 """FederatedEngine, the synchronous round (paper Algorithm 1): the port of
 ``repro.fl.engine`` for the paths of the paper's two settings: the MNIST
 MLP (fig3) and the CIFAR CNN (fig5, its BatchNorm statistics held per
-client), the dense age layout, every selection method of
+client), both age layouts (dense, and hierarchical: cluster-keyed age
+rows compacted at every recluster and a request-log ring in place of the
+(N, d) counts), every selection method of
 ``make_strategy``, the threshold (or sort) candidate report, error
 feedback, the participation plane (``fl.schedule``: full, uniform m of
 N, AoI-balanced, deadline), the compute plane (masked or gathered), and
 both drivers: ``run`` (a round a step) and ``run_scanned`` (chunks of
 rounds, each round on the card one replay of a CUDA graph of the round
-body).
+body), and checkpoint/resume of the whole round state (``save_state``,
+``load_state``, ``checkpointer=`` of either driver).
 
 One rAge-k round, all on the engine's device:
 
@@ -39,9 +42,10 @@ scatters the results back, so a gathered round equals the masked one
 (``'auto'`` gathers exactly when m < N). Under full participation every
 mask is skipped: the round is the full-participation program.
 
-Every M rounds the host pulls the (N, d) request counts, runs DBSCAN and
-merges or resets the cluster ages (rAge-k only): inline under ``run``,
-on a worker thread under ``run_scanned``. The engine's state is a fixed
+Every M rounds the host pulls the (N, d) request counts (hierarchical:
+drains the log ring into its own copy of them), runs DBSCAN and merges
+or resets the cluster ages (rAge-k only): inline under ``run``, on a
+worker thread under ``run_scanned``. The engine's state is a fixed
 set of buffers that each round updates in place (a graph replays on the
 addresses it captured); the reference threads it through a pure jitted
 function instead.
@@ -51,6 +55,7 @@ Options of the reference that this path does not take raise
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -61,9 +66,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.checkpoint.io import load_checkpoint
 from repro_torch.configs.base import RAgeKConfig
 from repro_torch.core.age import AgeState
-from repro_torch.core.clustering import cluster_clients, connectivity_matrix
+from repro_torch.core.clustering import (cluster_clients,
+                                         connectivity_matrix,
+                                         fold_request_log)
 from repro_torch.core.compression import bytes_per_index, bytes_per_round
 from repro_torch.core.strategies import (age_select, make_strategy,
                                          segmented_rage_select)
@@ -86,17 +94,46 @@ def _todo(what: str, item: str):
 
 
 class DeviceAgeState(NamedTuple):
-    """PS age state on the device, dense layout: ``cluster_age`` (N, d)
-    int32 rows keyed by cluster id, ``freq`` (N, d) int32 request counts
-    (eq. 3 inputs), ``cluster_of`` (N,) int32 labels."""
+    """PS age state on the device. Two layouts share this container
+    (``age_layout='dense'|'hierarchical'``); in both, ``cluster_age``
+    rows are keyed by cluster id (eq. (2) makes ages cluster-shared):
+
+    field        dense                hierarchical
+    -----------  -------------------  ---------------------------------
+    cluster_age  (N, d) int32; rows   (C, d) int32: C live clusters,
+                 past the live count  reallocated at every recluster
+                 stay zero            (N at t = 0)
+    freq         (N, d) int32 eq.-3   None: the host folds the request
+                 request counts       log into its own (N, d) matrix
+    cluster_of   (N,) int32 labels    (N,) int32 labels
+    cost         None                 CAFe only: (N, d) int32 upload
+                                      cost rows (dense keeps them in
+                                      ``freq``)
+    upload_cost  None                 (N,) int32 entries uploaded so far
+    log_idx      None                 (L, m_bound, k) int32 ring of the
+                                      requested indices (sentinel d)
+    log_mem      None                 (L, m_bound) int32 requesting ids
+                                      (sentinel N: a padded slot)
+    log_ptr      None                 () int32 monotone write pointer;
+                                      slot ``log_ptr % L``
+
+    The ring (rAge-k only, L = M: one recluster window) replaces the
+    dense ``freq`` as the DBSCAN input: the boundary pulls M·m·(k+1)·4
+    bytes instead of N·d·4."""
 
     cluster_age: torch.Tensor
-    freq: torch.Tensor
+    freq: torch.Tensor | None
     cluster_of: torch.Tensor
+    cost: torch.Tensor | None = None
+    upload_cost: torch.Tensor | None = None
+    log_idx: torch.Tensor | None = None
+    log_mem: torch.Tensor | None = None
+    log_ptr: torch.Tensor | None = None
 
     @classmethod
     def create(cls, d: int, n_clients: int, device) -> "DeviceAgeState":
-        """t = 0: every client its own singleton cluster row."""
+        """Dense layout at t = 0: every client its own singleton cluster
+        row, and the (N, d) request counts."""
         return cls(
             cluster_age=torch.zeros((n_clients, d), dtype=torch.int32,
                                     device=device),
@@ -104,6 +141,61 @@ class DeviceAgeState(NamedTuple):
                              device=device),
             cluster_of=torch.arange(n_clients, dtype=torch.int32,
                                     device=device))
+
+    @classmethod
+    def create_hierarchical(cls, d: int, n_clients: int, *,
+                            log_len: int = 0, m_bound: int = 0, k: int = 0,
+                            with_cost: bool = False,
+                            device=None) -> "DeviceAgeState":
+        """Hierarchical layout at t = 0: N singleton rows, which shrink
+        to the live count at the first merging recluster. ``log_len``,
+        ``m_bound`` and ``k`` size the request-log ring (``log_len`` 0:
+        no ring, for methods that never recluster); ``with_cost`` adds
+        CAFe's cost rows. ``device=None`` means the card."""
+        dev = resolve(device)
+        log = log_len > 0
+
+        def full(shape, value):
+            return torch.full(shape, value, dtype=torch.int32, device=dev)
+        return cls(
+            cluster_age=full((n_clients, d), 0),
+            freq=None,
+            cluster_of=torch.arange(n_clients, dtype=torch.int32,
+                                    device=dev),
+            cost=full((n_clients, d), 0) if with_cost else None,
+            upload_cost=full((n_clients,), 0),
+            log_idx=full((log_len, m_bound, k), d) if log else None,
+            log_mem=full((log_len, m_bound), n_clients) if log else None,
+            log_ptr=full((), 0) if log else None)
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of every tensor of the age plane."""
+        return sum(t.numel() * t.element_size() for t in self
+                   if t is not None)
+
+
+def drain_request_log(age: DeviceAgeState, freq_host: np.ndarray,
+                      seen: int, *, n: int, d: int) -> int:
+    """Pull the request-log slots written since the watermark ``seen``
+    and fold them into the host's (N, d) frequency matrix: the
+    hierarchical layout's boundary pull, (ptr - seen)·m·(k+1)·4 bytes.
+    Returns the new watermark (``log_ptr``). The caller holds no other
+    reader of ``freq_host`` meanwhile."""
+    ptr = int(age.log_ptr)
+    if ptr == seen:
+        return seen
+    L = int(age.log_idx.shape[0])
+    # the ring covers one recluster window and every recluster drains,
+    # so the device's writes never lap the watermark
+    assert ptr - seen <= L, (
+        f"request log overran: ptr={ptr} seen={seen} L={L}")
+    slots = torch.tensor([p % L for p in range(seen, ptr)],
+                         device=age.log_idx.device)
+    fold_request_log(freq_host, age.log_mem.index_select(0, slots).cpu()
+                     .numpy(), age.log_idx.index_select(0, slots).cpu()
+                     .numpy(), n_clients=n, d=d)
+    return ptr
 
 
 @dataclass
@@ -134,6 +226,38 @@ class FLResult:
             "peak_coord_age": max(self.age_peak) if self.age_peak else 0.0,
             "wall_s": self.wall_s,
         }
+
+
+_RESULT_LISTS = ("rounds", "loss", "acc", "uplink_bytes", "n_active",
+                 "aoi_mean", "aoi_peak", "age_mean", "age_peak")
+
+
+def _result_to_json(res: FLResult) -> dict:
+    """An FLResult as JSON for a checkpoint's meta (Python floats
+    round-trip JSON exactly, so a resumed run's curves are bitwise the
+    uninterrupted run's)."""
+    out = {key: list(getattr(res, key)) for key in _RESULT_LISTS}
+    out["cluster_labels"] = [np.asarray(c).tolist()
+                             for c in res.cluster_labels]
+    out["heatmaps"] = {str(t): np.asarray(h).tolist()
+                       for t, h in res.heatmaps.items()}
+    out["requested"] = [None if r is None else np.asarray(r).tolist()
+                        for r in res.requested]
+    return out
+
+
+def _result_from_json(d: dict | None) -> FLResult:
+    res = FLResult()
+    if not d:
+        return res
+    for key in _RESULT_LISTS:
+        setattr(res, key, list(d[key]))
+    res.cluster_labels = [np.asarray(c, np.int64)
+                          for c in d["cluster_labels"]]
+    res.heatmaps = {int(t): np.asarray(h) for t, h in d["heatmaps"].items()}
+    res.requested = [None if r is None else np.asarray(r, np.int32)
+                     for r in d["requested"]]
+    return res
 
 
 def _build_model(kind: str, generator: torch.Generator, device):
@@ -194,6 +318,12 @@ def count_requests(freq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         idx, dtype=freq.dtype))[:, :d]
 
 
+def _counted(freq: torch.Tensor | None, idx: torch.Tensor):
+    """The request counts after ``idx``; None under the hierarchical
+    layout, whose requests go to the log ring instead."""
+    return None if freq is None else count_requests(freq, idx)
+
+
 def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
                 disjoint: bool = True, active: torch.Tensor | None = None):
     """Algorithm 1 steps 2-3 + eq. (2), sequentially over clients: the
@@ -241,7 +371,7 @@ def rage_select(age: DeviceAgeState, *, k: int, cands: torch.Tensor,
             new_row = torch.where(active[i], new_row, row)
         cluster_age.index_copy_(0, cl[i:i + 1], new_row.unsqueeze(0))
     return idx.to(torch.int32), age._replace(
-        cluster_age=cluster_age, freq=count_requests(age.freq, idx))
+        cluster_age=cluster_age, freq=_counted(age.freq, idx))
 
 
 def apply_global(g_opt, g_sum, g_params, g_opt_state):
@@ -278,19 +408,23 @@ def rage_select_segmented(age: DeviceAgeState, *, r: int, k: int,
         num_segments=num_segments, max_seg=max_seg, disjoint=disjoint,
         cands=cands, d=d, active=active)
     return idx, age._replace(cluster_age=new_ca,
-                             freq=count_requests(age.freq, idx)), seg
+                             freq=_counted(age.freq, idx)), seg
 
 
 def _recluster_host(freq: np.ndarray, cluster_age: np.ndarray,
-                    cluster_of: np.ndarray, eps: float, min_pts: int):
+                    cluster_of: np.ndarray, eps: float, min_pts: int,
+                    compact: bool = False):
     """Eq. (3) similarity -> DBSCAN -> merge/reset of the cluster age rows
-    (``AgeState.apply_clusters``). Returns (new (N, d) int32 cluster_age,
-    (N,) labels)."""
+    (``AgeState.apply_clusters``; ``cluster_age`` has N rows or, under the
+    hierarchical layout, C). Returns (new int32 cluster_age: (N, d), or
+    with ``compact`` the (C_new, d) live rows keyed by the canonical
+    labels; (N,) labels)."""
     n, d = freq.shape
     labels = cluster_clients(freq, eps, min_pts)
     st = AgeState.from_cluster_rows(cluster_age, cluster_of)
     st.apply_clusters(labels)
-    new_ca = np.zeros((n, d), np.int32)
+    rows = int(st.cluster_of.max()) + 1 if compact else n
+    new_ca = np.zeros((rows, d), np.int32)
     for c, v in st.ages.items():
         new_ca[c] = v
     return new_ca, st.cluster_of
@@ -352,9 +486,6 @@ class FederatedEngine:
         if global_opt not in ("adam", "sgd"):
             raise ValueError(f"global_opt must be 'adam' or 'sgd', got "
                              f"{global_opt!r}")
-        if hp.age_layout != "dense":
-            raise _todo(f"age_layout={hp.age_layout!r}", "item 11: the "
-                        "hierarchical age layout")
         if faults is not None:
             raise _todo("faults", "item 13: resilience")
         self.device = dev = resolve(device)
@@ -416,7 +547,23 @@ class FederatedEngine:
         self.state_s = (C.tree_map(lambda t: t.to(dev, torch.float32),
                                    C.stack_clients([state] * n))
                         if state else {})
-        self.age = DeviceAgeState.create(d, n, dev)
+        # the age plane: 'dense' keeps (N, d) ages and counts;
+        # 'hierarchical' keys the ages by live cluster ((C, d), compacted
+        # at every recluster) and logs each round's requests in a ring
+        # that the host drains into _freq_host at its stops
+        self._hier = hp.age_layout == "hierarchical"
+        if self._hier:
+            rage = hp.method == "rage_k"
+            self.age = DeviceAgeState.create_hierarchical(
+                d, n, log_len=hp.M if rage else 0,
+                m_bound=self._scheduler.m_bound, k=hp.k,
+                with_cost=hp.method == "cafe", device=dev)
+            self._freq_host = np.zeros((n, d), np.int32) if rage else None
+        else:
+            self.age = DeviceAgeState.create(d, n, dev)
+            self._freq_host = None
+        self._log_seen = 0               # the host's drain watermark
+        self._ids = torch.arange(n, device=dev)
         self.ef_mem = (torch.zeros((n, d), dtype=torch.float32, device=dev)
                        if ef else None)
         self.sched = SchedState.create(n, seed + 23, dev)
@@ -448,6 +595,7 @@ class FederatedEngine:
         self._graphs: dict = {}
         self._pool = None
         self._capture_stream = None
+        self.capture_s = 0.0             # host wall of captures
 
         # the every-M recluster: inline under run(), on a worker thread
         # under run_scanned(), joined before anything reads the labels.
@@ -461,6 +609,9 @@ class FederatedEngine:
         # labels (the first raise may be swallowed by __del__)
         self._recluster_exc: BaseException | None = None
         self._pinned = None              # host buffers of the snapshot
+        # device->host bytes of the recluster inputs: the clustering
+        # input (the (N, d) counts, or the drained log) and the age rows
+        self.pull_bytes = {"clustering_input": 0, "age_rows": 0}
         self.recluster_s = 0.0           # host DBSCAN + merge wall
         self.recluster_wait_s = 0.0      # the part a driver blocked on
 
@@ -507,9 +658,11 @@ class FederatedEngine:
         elif hp.method == "cafe":
             # per-client cost-and-age selection: cluster_age doubles as the
             # per-client age rows (clusters stay singletons: no recluster
-            # on this method) and freq holds the cumulative cost; clients
-            # outside the round age with no reset, no cost
-            ca0, cost0 = self.age.cluster_age, self.age.freq
+            # on this method) and freq (hierarchical: cost) holds the
+            # cumulative cost; clients outside the round age with no
+            # reset, no cost
+            ca0 = self.age.cluster_age
+            cost0 = self.age.freq if self.age.cost is None else self.age.cost
             if rows is None:
                 idx, _, (ca, cost) = self._strategy.select_batch(
                     G, (ca0, cost0))
@@ -522,7 +675,7 @@ class FederatedEngine:
                 ca = C.put_rows(ca0 + 1, act_idx, ca_c)
                 cost = C.put_rows(cost0, act_idx, cost_c)
                 idx = to_clients(idx_c)
-            _write((self.age.cluster_age, self.age.freq), (ca, cost))
+            _write((ca0, cost0), (ca, cost))
         elif hp.method == "dense":
             return None, None
         elif hp.method in ("rtop_k", "random_k"):
@@ -540,6 +693,28 @@ class FederatedEngine:
         # clients outside the round request nothing: sentinel-d rows, set
         # in this one place so that no method can forget them
         return torch.where(plan.active.unsqueeze(1), idx, d), seg
+
+    def _log_requests(self, idx: torch.Tensor, active: torch.Tensor,
+                      act_idx):
+        """Append the round's requests to the hierarchical layout's ring:
+        slot ``log_ptr % L`` takes the m_bound participants (``act_idx``
+        when gathered, else the compacted active ids; padded slots hold
+        the sentinel N and sentinel-d rows), and ``log_ptr`` advances. All
+        on the device, at a device index: a replayed graph writes the
+        slot of its own round."""
+        n, d, age = self.n, self.d, self.age
+        if act_idx is not None:
+            mem = act_idx
+        elif self._full:
+            mem = self._ids
+        else:
+            mem = self._compact(active)
+        rows = idx.index_select(0, mem.clamp(max=n - 1))
+        rows = torch.where((mem < n).unsqueeze(1), rows, d)
+        slot = (age.log_ptr % age.log_idx.shape[0]).to(torch.int64).view(1)
+        age.log_idx.index_copy_(0, slot, rows.to(torch.int32).unsqueeze(0))
+        age.log_mem.index_copy_(0, slot, mem.to(torch.int32).unsqueeze(0))
+        age.log_ptr.add_(1)
 
     def _upload(self, G: torch.Tensor, idx, plan: RoundPlan, act_idx):
         """What each trained row uploads, in wire form, late arrivals
@@ -637,6 +812,12 @@ class FederatedEngine:
 
         with record_function("select"):
             idx, seg = self._select(G, cands, plan, act_idx)
+            if self.age.log_ptr is not None:
+                self._log_requests(idx, act, act_idx)
+            if self.age.upload_cost is not None:
+                # the entries each client of the round uploads
+                self.age.upload_cost.add_(
+                    act.to(torch.int32) * (d if idx is None else hp.k))
         with record_function("aggregate"):
             vals, sent = self._upload(G, idx, plan, act_idx)
             if idx is None:
@@ -760,14 +941,24 @@ class FederatedEngine:
     # the chunked driver: a CUDA graph of the round, replayed
     # ------------------------------------------------------------------
     def _graph_key(self):
-        """What a graph of the round bakes in that can change: the
-        segmented packing bounds (rage_k segmented; the member bound is
-        cut to the scheduler's m_bound, as :meth:`_select` packs), else
-        nothing."""
+        """What a graph of the round bakes in that can change: the age
+        rows (hierarchical: C after a compaction) and the segmented
+        packing bounds (rage_k segmented; the member bound is cut to the
+        scheduler's m_bound, as :meth:`_select` packs)."""
+        rows = self.age.cluster_age.shape[0]
         if self.hp.method == "rage_k" and self._selection == "segmented":
-            return (self._num_seg,
+            return (rows, self._num_seg,
                     min(self._max_seg, self._scheduler.m_bound))
-        return None
+        return (rows,)
+
+    def _drop_graphs(self):
+        """Forget every captured graph: they read the addresses of buffers
+        about to be replaced. Their memory pool goes with the last of
+        them, so the next chunk captures anew into a new one."""
+        if self._graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._pool = None
 
     def _capture(self, key):
         """Run one round eagerly on the capture stream (a real round, which
@@ -776,8 +967,10 @@ class FederatedEngine:
         device generators registered so that each replay draws anew, and
         the kernels' launches counted into the graph's tally. Returns the
         eager round's metric vectors. A failed capture raises."""
+        t0 = time.perf_counter()
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
+        if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -791,6 +984,7 @@ class FederatedEngine:
                 graph, pool=self._pool, stream=stream):
             outs = self._round()
         self._graphs[key] = (graph, dict(tally), outs)
+        self.capture_s += time.perf_counter() - t0
         return out
 
     def _chunk(self, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -818,13 +1012,17 @@ class FederatedEngine:
             stacks[1][j].copy_(i)
         return stacks
 
-    def _next_stop(self, end: int, eval_every: int, heatmap_at) -> int:
+    def _next_stop(self, end: int, eval_every: int, heatmap_at,
+                   ckpt_every: int = 0) -> int:
         """First round after ``round_idx`` where the host must step in:
-        the recluster (every M, rage_k), an eval, a heatmap, or the end."""
+        the recluster (every M, rage_k), an eval, a heatmap, a
+        checkpoint, or the end."""
         t = self.round_idx
         stops = [end, t + eval_every - t % eval_every]
         if self.hp.method == "rage_k":
             stops.append(t + self.hp.M - t % self.hp.M)
+        if ckpt_every:
+            stops.append(t + ckpt_every - t % ckpt_every)
         stops.extend(h for h in heatmap_at if h > t)
         return min(stops)
 
@@ -837,14 +1035,15 @@ class FederatedEngine:
         end at the host's stops (the every-M recluster, eval, heatmap);
         the chunk's stacked metrics come down in one pull, and a
         recluster due at its end runs on a worker thread while the host
-        drains them and evaluates."""
-        if checkpointer is not None or ckpt_every:
-            raise _todo("checkpointer=", "item 13: resilience")
+        drains them and evaluates. With ``checkpointer`` (an
+        :class:`~repro_torch.checkpoint.AsyncCheckpointer`) chunks also
+        end every ``ckpt_every`` rounds, where the state is saved."""
         t0 = time.time()
         res = result if result is not None else FLResult()
         end = self.round_idx + rounds
         while self.round_idx < end:
-            T = self._next_stop(end, eval_every, heatmap_at) - self.round_idx
+            T = (self._next_stop(end, eval_every, heatmap_at, ckpt_every)
+                 - self.round_idx)
             td = time.perf_counter()
             fs, ints = self._chunk(T)
             # chunks end at the recluster rounds, so only the last round
@@ -861,22 +1060,23 @@ class FederatedEngine:
                 self._track(res, row)
             self._record(res, row["losses"], end=end, eval_every=eval_every,
                          heatmap_at=heatmap_at, verbose=verbose)
+            self._maybe_save(checkpointer, ckpt_every, res)
         res.wall_s = time.time() - t0
         return res
 
     # ------------------------------------------------------------------
     # the every-M recluster
     # ------------------------------------------------------------------
-    def _snapshot(self):
-        """Host copies of what a recluster reads (freq, cluster_age,
-        cluster_of), taken on the calling thread, so that no work enqueued
-        later, which updates them in place, reaches them: on the card
-        non-blocking copies into pinned buffers and an event that marks
-        them done. Returns (arrays, event or None)."""
-        src = (self.age.freq, self.age.cluster_age, self.age.cluster_of)
+    def _snapshot(self, src):
+        """Host copies of the tensors ``src``, taken on the calling thread,
+        so that no work enqueued later, which updates them in place,
+        reaches them: on the card non-blocking copies into pinned buffers
+        (kept while the shapes hold) and an event that marks them done.
+        Returns (arrays, event or None)."""
         if self.device.type != "cuda":
             return [t.numpy().copy() for t in src], None
-        if self._pinned is None:
+        if self._pinned is None or [h.shape for h in self._pinned] != [
+                t.shape for t in src]:
             self._pinned = [torch.empty(t.shape, dtype=t.dtype,
                                         pin_memory=True) for t in src]
         for h, t in zip(self._pinned, src):
@@ -887,17 +1087,49 @@ class FederatedEngine:
 
     def _recluster_work(self):
         """The recluster's host work on a snapshot, as a callable for this
-        thread or the worker: returns ((new cluster_age, labels), s)."""
-        (freq, ca, cl), ready = self._snapshot()
+        thread or the worker: returns ((new cluster_age, labels), s).
+        Under the hierarchical layout the log is drained first, here on
+        the calling thread, so the worker reads a quiescent _freq_host
+        (the next drain joins the worker first), and the new rows are
+        the compact (C_new, d)."""
+        age = self.age
+        if self._hier:
+            t0 = time.perf_counter()
+            self._drain_freq_log()
+            drain_s = time.perf_counter() - t0
+            freq = self._freq_host
+            (ca, cl), ready = self._snapshot((age.cluster_age,
+                                              age.cluster_of))
+            host = functools.partial(_recluster_host, compact=True)
+        else:
+            drain_s = 0.0
+            (freq, ca, cl), ready = self._snapshot(
+                (age.freq, age.cluster_age, age.cluster_of))
+            self.pull_bytes["clustering_input"] += freq.nbytes
+            host = _recluster_host
+        self.pull_bytes["age_rows"] += ca.nbytes
         eps, min_pts = self.hp.eps, self.hp.min_pts
 
         def work():
             t0 = time.perf_counter()
             if ready is not None:
                 ready.synchronize()
-            return (_recluster_host(freq, ca, cl, eps, min_pts),
-                    time.perf_counter() - t0)
+            return (host(freq, ca, cl, eps, min_pts),
+                    drain_s + time.perf_counter() - t0)
         return work
+
+    def _drain_freq_log(self):
+        """Fold the log slots written since the last drain into
+        _freq_host (hierarchical rAge-k; else nothing). Callers hold no
+        recluster in flight: the worker reads _freq_host."""
+        if self._freq_host is None:
+            return
+        seen = self._log_seen
+        self._log_seen = drain_request_log(self.age, self._freq_host, seen,
+                                           n=self.n, d=self.d)
+        self.pull_bytes["clustering_input"] += (
+            (self._log_seen - seen) * self.age.log_mem[0].numel()
+            * (self.hp.k + 1) * 4)
 
     def _recluster_submit(self):
         """Start the every-M recluster on the worker thread (the chunked
@@ -948,11 +1180,23 @@ class FederatedEngine:
 
     def _apply_recluster(self, new_ca: np.ndarray, labels: np.ndarray):
         """DBSCAN's rows and labels into the age state's own buffers; the
-        packing bounds from the host labels."""
-        self.age.cluster_age.copy_(torch.from_numpy(new_ca))
+        packing bounds from the host labels. Hierarchical rows of a new
+        count C_new take a new (C_new, d) buffer, and the old one goes
+        with every graph that read it."""
+        self._set_cluster_age(torch.from_numpy(new_ca))
         self.age.cluster_of.copy_(torch.from_numpy(labels.astype(np.int32)))
         self._num_seg = int(labels.max()) + 1
         self._max_seg = int(np.bincount(labels).max())
+
+    def _set_cluster_age(self, rows: torch.Tensor):
+        """Write ``rows`` into ``cluster_age`` in place when the shape
+        holds; else replace the buffer and drop the graphs."""
+        if rows.shape == self.age.cluster_age.shape:
+            self.age.cluster_age.copy_(rows)
+            return
+        self._drop_graphs()
+        self.age = self.age._replace(
+            cluster_age=rows.to(self.device, torch.int32).contiguous())
 
     @property
     def recluster_hidden_s(self) -> float:
@@ -978,6 +1222,84 @@ class FederatedEngine:
         except Exception:
             pass
 
+    # ------------------------------------------------------------------
+    # checkpoint/resume
+    # ------------------------------------------------------------------
+    def state_tree(self) -> dict:
+        """The whole round state as one tree: params, the global and
+        per-client optimizer state, the model state, the age state in
+        either layout (the log ring and ``log_ptr`` included), the ef
+        memory, the sampler's cursors, ``SchedState`` and both device
+        generators' states (after any replays), plus the hierarchical
+        layout's host counts. Joins any recluster in flight and drains
+        the log first (a watermark move: the run's math is untouched)."""
+        self._recluster_join()
+        tree = {"carry": {
+            "g_params": self.g_params, "g_opt_state": self.g_opt_state,
+            "opt_s": self.opt_s, "state_s": self.state_s, "age": self.age,
+            "ef_mem": self.ef_mem, "samp": self.samp, "sched": self.sched,
+            "gen": {"store": self._store.gen.get_state(),
+                    "select": self._gen.get_state()}}}
+        if self._freq_host is not None:
+            self._drain_freq_log()
+            tree["freq_host"] = self._freq_host
+        return tree
+
+    def _extra_state(self) -> dict:
+        return {"round_idx": self.round_idx, "cum_bytes": self.cum_bytes,
+                "log_seen": self._log_seen, "num_seg": self._num_seg,
+                "max_seg": self._max_seg}
+
+    def save_state(self, checkpointer, result: FLResult | None = None):
+        """Snapshot the round state into ``checkpointer`` (an
+        ``AsyncCheckpointer``), the host scalars and the FLResult so far
+        in its meta, so that a resumed driver reproduces the
+        uninterrupted run's output."""
+        tree = self.state_tree()     # first: its drain moves log_seen
+        extra = self._extra_state()
+        if result is not None:
+            extra["result"] = _result_to_json(result)
+        checkpointer.save(self.round_idx, tree, extra=extra)
+
+    def load_state(self, source, step: int | None = None) -> FLResult:
+        """Restore the newest good checkpoint under ``source`` (an
+        ``AsyncCheckpointer`` or a directory), or ``step``. The engine
+        must be built with the same config and seed. Buffers are written
+        in place where the shapes match; hierarchical age rows of another
+        count take a new buffer. Captured graphs are dropped (the next
+        chunk captures anew). Returns the FLResult saved with the state
+        (empty if none) for the driver to append to."""
+        path = getattr(source, "path", source)
+        tree, meta = load_checkpoint(path, self.state_tree(), step=step)
+        self._drop_graphs()
+        carry = tree["carry"]
+        age = carry["age"]
+        self._set_cluster_age(age.cluster_age)
+        _write(self.age._replace(cluster_age=None),
+               age._replace(cluster_age=None))
+        for key in ("g_params", "g_opt_state", "opt_s", "state_s",
+                    "ef_mem", "samp", "sched"):
+            if carry[key] is not None:
+                _write(getattr(self, key), carry[key])
+        self._store.gen.set_state(carry["gen"]["store"])
+        self._gen.set_state(carry["gen"]["select"])
+        if "freq_host" in tree:
+            self._freq_host = np.array(tree["freq_host"])
+        ex = meta["extra"]
+        self.round_idx = int(ex["round_idx"])
+        self.cum_bytes = int(ex["cum_bytes"])
+        self._log_seen = int(ex["log_seen"])
+        self._num_seg = int(ex["num_seg"])
+        self._max_seg = int(ex["max_seg"])
+        return _result_from_json(ex.get("result"))
+
+    def _maybe_save(self, checkpointer, ckpt_every: int, res: FLResult):
+        """The drivers' checkpoint cadence: a save at every multiple of
+        ``ckpt_every``, after the round's record."""
+        if (checkpointer is not None and ckpt_every
+                and self.round_idx % ckpt_every == 0):
+            self.save_state(checkpointer, result=res)
+
     @property
     def cluster_of(self) -> np.ndarray:
         self._recluster_join()
@@ -985,11 +1307,20 @@ class FederatedEngine:
 
     @property
     def freq_matrix(self) -> np.ndarray:
-        """The cumulative (N, d) request-frequency matrix (eq.-3 inputs).
-        CAFe's cost rows stand in for it, as the reference stores them
-        there; methods that never request return zeros."""
+        """The cumulative (N, d) request-frequency matrix (eq.-3 inputs),
+        in either layout: the device's counts (dense) or the host's
+        (hierarchical, the log drained first), equal by construction.
+        CAFe's cost rows stand in for it, as the reference stores them;
+        methods that never request return zeros."""
         self._recluster_join()
-        return self.age.freq.cpu().numpy()
+        if self.age.freq is not None:
+            return self.age.freq.cpu().numpy()
+        if self._freq_host is not None:
+            self._drain_freq_log()
+            return self._freq_host.copy()
+        if self.age.cost is not None:
+            return self.age.cost.cpu().numpy()
+        return np.zeros((self.n, self.d), np.int32)
 
     @torch.no_grad()
     def eval_acc(self) -> float:
@@ -1042,9 +1373,9 @@ class FederatedEngine:
     def run(self, rounds: int, *, eval_every: int = 5, heatmap_at=(),
             verbose: bool = False, checkpointer=None, ckpt_every: int = 0,
             result: FLResult | None = None) -> FLResult:
-        """Drive ``rounds`` through :meth:`step`, one host pull a round."""
-        if checkpointer is not None or ckpt_every:
-            raise _todo("checkpointer=", "item 13: resilience")
+        """Drive ``rounds`` through :meth:`step`, one host pull a round;
+        with ``checkpointer``, the state is saved every ``ckpt_every``
+        rounds."""
         t0 = time.time()
         res = result if result is not None else FLResult()
         end = self.round_idx + rounds
@@ -1053,5 +1384,6 @@ class FederatedEngine:
             self._track(res, m)
             self._record(res, m["losses"], end=end, eval_every=eval_every,
                          heatmap_at=heatmap_at, verbose=verbose)
+            self._maybe_save(checkpointer, ckpt_every, res)
         res.wall_s = time.time() - t0
         return res

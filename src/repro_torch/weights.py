@@ -2,7 +2,8 @@
 array-likes (the fig3 ``g_params``, an LM's parameters or its KV cache)
 becomes the port's tree on a given device, with the same nesting, the
 same leaf shapes (stacked layer leaves keep their leading axis) and the
-same dtypes, so both packages start from the same weights."""
+same dtypes, so both packages start from the same weights; and the
+reference's ``DeviceAgeState`` (either age layout) becomes the port's."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,3 +29,13 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
     return _leaf(tree, dev)
+
+
+def age_state_from_jax(age, device=None):
+    """A reference ``DeviceAgeState`` of either layout (array-like leaves,
+    None where the layout has no such field) -> the port's, field by
+    field, on ``device`` (None means the card)."""
+    from repro_torch.fl.engine import DeviceAgeState
+    dev = resolve(device)
+    return DeviceAgeState(*[None if a is None else _leaf(a, dev)
+                            for a in age])

@@ -22,8 +22,10 @@ with its reason:
 """
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 import torch.nn.functional as F
 
 try:

@@ -33,8 +33,10 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 try:
     import jax.numpy as jnp

@@ -18,8 +18,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 from repro.configs.base import RAgeKConfig as JCfg
 from repro.core import strategies as JS
@@ -262,7 +264,7 @@ def test_no_silent_cpu(fig3_data, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,hp,item", [
-    ({}, {"age_layout": "hierarchical"}, "item 11"),
+    ({"faults": object()}, {"age_layout": "hierarchical"}, "item 13"),
     ({"faults": object()}, {}, "item 13")])
 def test_unported_options_raise(fig3_data, kw, hp, item):
     shards, test = fig3_data

@@ -18,8 +18,10 @@ comparisons with the JAX package then skip).
 """
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 try:
     import jax

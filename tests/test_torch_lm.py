@@ -24,8 +24,10 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 import jax
 import jax.numpy as jnp

@@ -29,8 +29,10 @@ import math
 
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 import jax
 import jax.numpy as jnp
@@ -516,7 +518,8 @@ def _engine(shards, test, **kw):
 
 
 def _buffers(eng):
-    return [eng.g_params, *eng.g_opt_state, *eng.opt_s, *eng.age,
+    return [eng.g_params, *eng.g_opt_state, *eng.opt_s,
+            *[t for t in eng.age if t is not None],
             *eng.samp, *eng.sched] + (
         [eng.ef_mem] if eng.ef_mem is not None else [])
 

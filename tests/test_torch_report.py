@@ -22,8 +22,10 @@ versions on the CPU, and skip where there is no card.
 """
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 try:
     import jax

@@ -20,8 +20,10 @@ import time
 
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 try:
     import jax
@@ -70,7 +72,8 @@ def _engine(setup, method="rage_k", selection="segmented", eps=0.8,
 def _state(eng) -> list:
     """Every buffer a round updates, flattened."""
     return [eng.g_params, *eng.g_opt_state, *eng.opt_s,
-            *TC.tree_leaves(eng.state_s), *eng.age, *eng.samp, *eng.sched]
+            *TC.tree_leaves(eng.state_s),
+            *[t for t in eng.age if t is not None], *eng.samp, *eng.sched]
 
 
 def _assert_same(ea, ra, eb, rb):
@@ -266,13 +269,33 @@ def test_worker_failure_reraises_at_every_consumer(mnist_setup, monkeypatch):
         eng.close()
 
 
+class _Recorder:
+    """A checkpointer that notes the steps it is handed."""
+
+    def __init__(self):
+        self.steps = []
+
+    def save(self, step, tree, extra=None):
+        self.steps.append((step, extra["round_idx"]))
+
+
 @pytest.mark.parametrize("driver", ["run", "run_scanned"])
 def test_checkpointer_is_not_ported(mnist_setup, driver):
+    """The checkpoint half of item 13 is ported (``checkpointer=`` saves
+    every ``ckpt_every`` rounds; ``ckpt_every`` alone saves nothing and
+    changes no result); its fault half is not: ``faults=`` raises."""
     eng = _engine(mnist_setup)
-    for kw in ({"checkpointer": object()}, {"ckpt_every": 2}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(eng, driver)(2, **kw)
-    assert eng.round_idx == 0
+    rec = _Recorder()
+    res = getattr(eng, driver)(5, eval_every=EVAL_EVERY, checkpointer=rec,
+                               ckpt_every=2)
+    assert rec.steps == [(2, 2), (4, 4)] and eng.round_idx == 5
+    other = _engine(mnist_setup)
+    assert getattr(other, driver)(5, eval_every=EVAL_EVERY,
+                                  ckpt_every=2).loss == res.loss
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _engine(mnist_setup, faults=object())
+    eng.close()
+    other.close()
 
 
 def test_deterministic_scope(monkeypatch):

@@ -9,8 +9,10 @@ draws, so it is held to the properties ``tests/test_data.py`` pins.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 from repro.core import strategies as JS
 from repro.fl import engine as JE

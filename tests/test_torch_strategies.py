@@ -15,8 +15,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import share_cores
 
 torch = pytest.importorskip("torch")
+share_cores(torch)
 
 from scipy import stats
 
