@@ -20,8 +20,11 @@ the last line:
    clusters past one block (S 156 and 256 at fig3's r and k, CIFAR's six
    clients in one cluster); ``decode_attention`` at head dims 32 to 256;
    the three FL kernels on a partial round's inputs: the report on m = 2
-   gathered rows, the selection on partial packings with a cluster that
-   has no active member, the aggregation with sentinel rows;
+   gathered rows, the report on the rows the fault lanes make (all NaN,
+   all inf, x1e8), the selection on partial packings with a cluster that
+   has no active member, the aggregation with sentinel rows; the report
+   on the async service's one row (1 x 39,760, r 75 and 1 x 2,515,338,
+   r 2,500) card == CPU, each faulted row alone too;
 4. parity: one fig3 round on the card against the same round on the CPU
    (the plain versions) from the same params and batches, for rAge-k
    (segmented and scan), CAFe, top-k, dense and rTop-k;
@@ -107,6 +110,26 @@ the last line:
 6m. fig5 resume: hierarchical at H 10, M 2 under
    ``device.deterministic()``, 8 rounds saving at 4, resumed there,
    bitwise; the entry's bytes and a save's blocking time;
+6n. faults (after 6j): the fault lanes' rates over 1,000 rounds and
+   dispatches; one faulted fig3 round card == CPU from handed masks
+   (masked and gathered, dense and hierarchical); 20 rAge-k rounds under
+   a fault model stepped == chunked bitwise with the counters, each
+   round's launches the unfaulted round's, finite with the gate and NaN
+   without; resume under faults bitwise in both layouts; a faulted chunk
+   with no host sync; the chunked rate with and without faults in turns;
+6o. async (after 6n): ``AsyncService`` at fig3: the degenerate service
+   against the engine over 20 aggregations (the first round and quantity
+   that differ, if any; losses within rtol 1e-3; the label pairs at 20);
+   K 5, V 4 under hetero 1.0 in report and dispatch modes and both
+   layouts: the event order against a host replay, graph replays ==
+   eager events bitwise, each eager landing's candidates == the plain
+   report on its row, the report's two launches a report-mode event and
+   none in dispatch mode,
+   a chunk of replays with no host sync; faults with a dark client;
+   resume bitwise; events/s eager and replayed, in turns;
+6p. fig5 async (after 6m): Network-2's service, 2 aggregations at K 6,
+   V 2, H 10: finite losses, the report's launches, ms an event; two
+   eager landings' candidates == the plain report on their rows;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -205,6 +228,9 @@ REPORT_SHAPES = [(10, 39_760, 75), (6, 2_515_338, 2500)]
 # past the report's shared sort (r > 8,192): an r of 20,000, and the CIFAR
 # row with r 10,000
 REPORT_LARGE = [(2, 200_000, 20_000), (1, 2_515_338, 10_000)]
+# the async service's report-mode landing: one client's row at fig3 and
+# at the CIFAR CNN's width
+SERVICE_REPORT = [(1, 39_760, 75), (1, 2_515_338, 2500)]
 # segmented_age_topk at (C, S, r, k): fig3 before and after the first
 # recluster, and CIFAR's six clients before and after theirs
 SEG_SHAPES = [(10, 1, 75, 10), (5, 2, 75, 10), (6, 1, 2500, 100),
@@ -299,6 +325,7 @@ def phase_kernels(torch, dev):
     out = []
 
     out += report_check(torch, dev, gen)
+    faulted_rows_check(torch, dev, gen)
 
     # maghist: one vector and the batch of the fig3 path, the ragged tails
     # (1, 4097) and (3, 13), every row holding the SPECIAL values; exact.
@@ -348,6 +375,30 @@ def phase_kernels(torch, dev):
     return out
 
 
+def report_exact(torch, G, r, baselines: bool = False):
+    """One report call on the card (``ops.threshold_topk_batch``, or with
+    ``baselines`` the baselines' ``ops.threshold_topk``) against the same
+    call on the CPU, exactly; the call launches the histogram pass and
+    the report kernel once each, nothing else."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops
+
+    fn = ops.threshold_topk if baselines else ops.threshold_topk_batch
+    before = dict(build.LAUNCHES)
+    got = fn(G, r)
+    rose = {k: build.LAUNCHES[k] - before[k] for k in before}
+    if rose != {k: int(k in ("maghist_batch", "threshold_topk_batch"))
+                for k in before}:
+        raise AssertionError(f"{fn.__name__} launched {rose} at "
+                             f"{tuple(G.shape)}, r {r}")
+    want = fn(G.cpu(), r)
+    for a, b in zip(*((x,) if torch.is_tensor(x) else x
+                      for x in (got, want))):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{fn.__name__} differs at "
+                                 f"{tuple(G.shape)}, r {r}")
+
+
 def baselines_report_check(torch, dev, gen):
     """The baselines' report (``ops.threshold_topk``: on the card the
     candidate report's two launches with its magnitudes, ``maghist``
@@ -358,29 +409,15 @@ def baselines_report_check(torch, dev, gen):
     written), its plain version (``report.threshold_topk_plain``: the
     per-block histograms, the threshold in torch, a full-row stable sort)
     and ``torch.topk(G.abs(), r)``. Returns the records."""
-    from repro_torch.kernels import build
     from repro_torch.kernels import ops
     from repro_torch.kernels import report as RP
 
-    want = {k: int(k in ("maghist_batch", "threshold_topk_batch"))
-            for k in build.LAUNCHES}
-
-    def check(G, r):
-        before = dict(build.LAUNCHES)
-        got = ops.threshold_topk(G, r)
-        rose = {k: build.LAUNCHES[k] - before[k] for k in before}
-        if rose != want:
-            raise AssertionError(f"the baselines' report launched {rose}")
-        for a, b in zip(got, ops.threshold_topk(G.cpu(), r)):
-            if not torch.equal(a.cpu(), b):
-                raise AssertionError(f"threshold_topk differs at "
-                                     f"{tuple(G.shape)}, r {r}")
-
     recs = []
     for n, d, r in REPORT_SHAPES:
-        check(grads(torch, n, d, gen, dev), r)
-        check(report_rows(torch, 7, d, gen, dev), r)
-        check(grads(torch, 1, d, gen, dev)[0], r)
+        for G in (grads(torch, n, d, gen, dev),
+                  report_rows(torch, 7, d, gen, dev),
+                  grads(torch, 1, d, gen, dev)[0]):
+            report_exact(torch, G, r, baselines=True)
         G = torch.randn((n, d), generator=gen, device=dev)
         b, by = bound(4 * n * d + 8 * n * r, n * d)
         t = dict(n=n, d=d, r=r,
@@ -430,37 +467,26 @@ def report_check(torch, dev, gen):
     times at each shape: the report beside its bound (one read of G; two
     reads printed too), its plain version and ``torch.topk(G.abs(), r)``,
     which finds the same set with no promise on ties; ``maghist_batch``
-    beside ``bincount``. Returns the kernels' records at fig3."""
-    from repro_torch.kernels import build
+    beside ``bincount``. At each ``SERVICE_REPORT`` (the service's one
+    row) the same exact check, on a row with the ``SPECIAL`` values and
+    on each of the ``report_rows`` alone. Returns the kernels' records
+    at fig3."""
     from repro_torch.kernels import maghist as MH
     from repro_torch.kernels import ops
     from repro_torch.kernels import report as RP
-
-    want = {k: int(k in ("maghist_batch", "threshold_topk_batch"))
-            for k in build.LAUNCHES}
-
-    def check(G, r):
-        before = dict(build.LAUNCHES)
-        got = ops.threshold_topk_batch(G, r)
-        rose = {k: build.LAUNCHES[k] - before[k] for k in before}
-        if rose != want:
-            raise AssertionError(f"the report launched {rose}")
-        if not torch.equal(got.cpu(), ops.threshold_topk_batch(G.cpu(), r)):
-            raise AssertionError(f"threshold_topk_batch differs at "
-                                 f"{tuple(G.shape)}, r {r}")
 
     for n, d in ((10, 39_760), (3, 4097), (1, 13)):
         G = grads(torch, n, d, gen, dev)
         if not torch.equal(MH.maghist_batch(G), MH.hist_rows(G)):
             raise AssertionError(f"maghist_batch differs at {(n, d)}")
-        check(G, min(75, d))
+        report_exact(torch, G, min(75, d))
     out = []
     for n, d, r in REPORT_SHAPES:
         G = grads(torch, n, d, gen, dev)
         if not torch.equal(MH.maghist_batch(G), MH.hist_rows(G)):
             raise AssertionError(f"maghist_batch differs at {(n, d)}")
-        check(G, r)
-        check(report_rows(torch, 7, d, gen, dev), r)
+        report_exact(torch, G, r)
+        report_exact(torch, report_rows(torch, 7, d, gen, dev), r)
         G = torch.randn((n, d), generator=gen, device=dev)
         got = ops.threshold_topk_batch(G, r)
         lib = torch.topk(G.abs(), r, dim=1)
@@ -500,11 +526,18 @@ def report_check(torch, dev, gen):
             f"bound {hb:.6f} ({hby})")
         if not out:
             out = [hist, rec]
+    for n, d, r in SERVICE_REPORT:
+        report_exact(torch, grads(torch, n, d, gen, dev), r)
+        for row in report_rows(torch, 7, d, gen, dev):
+            report_exact(torch, row.unsqueeze(0), r)
+    say(f"  threshold_topk_batch on the service's single rows "
+        f"{SERVICE_REPORT}: card == CPU exactly (the SPECIAL values and "
+        f"each of the seven report_rows kinds alone), two launches a call")
     # past the shared sort: the gathered pairs sorted in device memory
     large = []
     for n, d, r in REPORT_LARGE:
-        check(grads(torch, n, d, gen, dev), r)
-        check(report_rows(torch, 2, d, gen, dev)[:n], r)
+        report_exact(torch, grads(torch, n, d, gen, dev), r)
+        report_exact(torch, report_rows(torch, 2, d, gen, dev)[:n], r)
         G = torch.randn((n, d), generator=gen, device=dev)
         b, by = bound(4 * n * d + 4 * n * r, n * d)
         t = dict(n=n, d=d, r=r,
@@ -925,6 +958,78 @@ def _groups_matched(labels) -> str:
             f"{'apart' if apart else 'not apart'}")
 
 
+def branch_grad(torch, eng, x, y, forced=None):
+    """The first local step's forward of the CNN engine ``eng`` (at its
+    current params and model state) on the batch (x (N, H, B, ...), y):
+    every ReLU's sign mask and the max pool's indices, in call order.
+    With ``forced`` (another device's such branches) each ReLU takes the
+    forced mask and the pool the forced indices, and the gradient G of
+    that pass comes too. Returns (branches, G (N, d) or None). The CPU's
+    G under the card's branches is the oracle of the card's G where
+    rounding put a ReLU input on the other side of 0 on the two devices.
+    ``torch.relu`` and ``F.max_pool2d`` are swapped for the pass."""
+    import torch.nn.functional as F
+    from repro_torch.device import strict_fp32
+    from repro_torch.fl import client as C
+    from repro_torch.models import paper_nets as P
+
+    relu, pool = torch.relu, F.max_pool2d
+    out = {"relu": [], "pool": []}
+    it = {k: iter(v) for k, v in (forced or {}).items()}
+
+    def relu_(h):
+        if forced is not None:
+            return torch.where(next(it["relu"]).to(h.device), h, 0.0)
+        out["relu"].append((h > 0).cpu())
+        return relu(h)
+
+    def pool_(h, k, s):
+        if forced is not None:
+            idx = next(it["pool"]).to(h.device)
+            return h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        y_, idx = pool(h, k, s, return_indices=True)
+        out["pool"].append(idx.cpu())
+        return y_
+    torch.relu, F.max_pool2d = relu_, pool_
+    try:
+        with strict_fp32():
+            p = eng.params_s.detach().requires_grad_(forced is not None)
+            logits, _ = P.cnn_apply(eng._unflatten(p), eng.state_s,
+                                    x[:, 0], train=True)
+            if forced is None:
+                return out, None
+            loss = C.softmax_xent(logits, y[:, 0])
+            return out, torch.autograd.grad(loss.sum(), p)[0]
+    finally:
+        torch.relu, F.max_pool2d = relu, pool
+
+
+# ReLU inputs that rounding may put on the other side of 0 on the card
+# and on the CPU: at most this many in all, in at most this many clients
+MAX_FLIPS = (4, 1)
+
+
+def flipped_clients(card_br, cpu_br, n: int) -> tuple[list, set]:
+    """The ReLU inputs of another sign on the two devices, a count a ReLU
+    call, and the clients they belong to (a convolution's channels are
+    grouped by client, a dense layer's leading axis is the client).
+    Raises past ``MAX_FLIPS``: more is drift, not rounding at 0."""
+    counts, clients = [], set()
+    for a, b in zip(card_br["relu"], cpu_br["relu"]):
+        diff = a != b
+        counts.append(int(diff.sum()))
+        if diff.ndim == 4:                       # (B, N*C, H, W)
+            per = diff.reshape(diff.shape[0], n, -1).any(2).any(0)
+        else:                                    # (N, B, F)
+            per = diff.reshape(n, -1).any(1)
+        clients |= set(per.nonzero().flatten().tolist())
+    if sum(counts) > MAX_FLIPS[0] or len(clients) > MAX_FLIPS[1]:
+        raise AssertionError(f"ReLU inputs of another sign on the card "
+                             f"and the CPU: {counts} a call, clients "
+                             f"{sorted(clients)}; at most {MAX_FLIPS}")
+    return counts, clients
+
+
 def phase_cifar_parity(torch, dev, shards, test):
     """One fig5 round of the full Network-2 (N 6, r 2,500, k 100; batch 32,
     H 1) on the card and on the CPU from the same params, BatchNorm state
@@ -940,7 +1045,11 @@ def phase_cifar_parity(torch, dev, shards, test):
     r-th place exceeds twice the largest |G| difference (their order
     inside swaps at near ties). Each comparison's largest difference is
     printed before it is checked, with the margin of the card's report:
-    the smallest gap in |G| at the r-th and k-th place of a row."""
+    the smallest gap in |G| at the r-th and k-th place of a row. Where
+    rounding puts a ReLU input on the other side of 0 on the card than on
+    the CPU (``branch_grad``; printed, a count a ReLU call), that client's
+    G row takes another branch: it is held, at the same tolerance, to the
+    CPU's gradient under the card's branches."""
     from repro_torch.configs.base import RAgeKConfig
     from repro_torch.core.strategies import topr_candidates
     from repro_torch.fl import client as C
@@ -954,6 +1063,15 @@ def phase_cifar_parity(torch, dev, shards, test):
                                      device=where, selection=selection)
                      for where in (dev, "cpu"))
         bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
+        # the branches each device takes; where a ReLU input has another
+        # sign on the card, that client's G row is held to the CPU's
+        # gradient under the card's branches
+        card_br = branch_grad(torch, card, bx, by)[0]
+        flips, flipped = flipped_clients(
+            card_br, branch_grad(torch, cpu, bx.cpu(), by.cpu())[0],
+            len(shards))
+        forced = (branch_grad(torch, cpu, bx.cpu(), by.cpu(), card_br)[1]
+                  if flipped else None)
         t0 = time.perf_counter()
         mc = card._round_impl(bx, by)
         torch.cuda.synchronize()
@@ -962,8 +1080,12 @@ def phase_cifar_parity(torch, dev, shards, test):
         mh = cpu._round_impl(bx.cpu(), by.cpu())
         t_cpu = time.perf_counter() - t0
         name = f"cnn {method}/{selection}"
+        rows = sorted(flipped)
+        G_ref = mh["G"].clone()
+        G_ref[rows] = forced[rows] if rows else G_ref[rows]
+        plain_G = float((mc["G"].cpu() - mh["G"]).abs().max())
         floats = {"losses": (mc["losses"], mh["losses"]),
-                  "G": (mc["G"], mh["G"])}
+                  "G": (mc["G"], G_ref)}
         if method != "rtop_k":
             floats.update(g_sum=(mc["g_sum"], mh["g_sum"]),
                           params=(card.g_params, cpu.g_params))
@@ -979,7 +1101,11 @@ def phase_cifar_parity(torch, dev, shards, test):
             f"{hp.H}): card {t_card:.2f} s, CPU {t_cpu:.2f} s; max |diff| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f"; the card's report margin: smallest |G| gap at place r "
-            f"{gap_r:.3e}, at place k {gap_k:.3e}")
+            f"{gap_r:.3e}, at place k {gap_k:.3e}; ReLU inputs of another "
+            f"sign on the card, a ReLU call each: {flips}"
+            + (f", so G's rows {rows} are held to the CPU's gradient under "
+               f"the card's branches (against the CPU's own: max |diff| "
+               f"{plain_G:.3e})" if rows else ""))
         for k, (a, b) in floats.items():
             torch.testing.assert_close(a.cpu(), b, **tol,
                                        msg=lambda m: f"{name} {k}: {m}")
@@ -997,10 +1123,10 @@ def phase_cifar_parity(torch, dev, shards, test):
                 f"own G: sets equal {same_set}, "
                 f"{int((reports[0] != reports[1]).sum())} of "
                 f"{reports[0].numel()} places differ in order (near ties "
-                f"inside the report swap where |G| moves by {errs['G']:.1e})")
+                f"inside the report swap where |G| moves by {plain_G:.1e})")
             # the sets must agree wherever the float differences cannot
             # cross the r-th place
-            if not same_set and gap_r > 2 * errs["G"]:
+            if not same_set and gap_r > 2 * plain_G:
                 raise AssertionError(f"{name}: candidate report sets differ")
             for m, rep in zip((mc, mh), reports):
                 if not (m["idx"].cpu().unsqueeze(-1)
@@ -1282,8 +1408,10 @@ def same_run(torch, ea, ra, eb, rb) -> list:
 
     bad = [key for key in ("rounds", "loss", "acc", "uplink_bytes",
                            "n_active", "aoi_mean", "aoi_peak", "age_mean",
-                           "age_peak")
-           if getattr(ra, key) != getattr(rb, key)]
+                           "age_peak", "n_quarantined", "n_crashed",
+                           "n_dropped")
+           if not np.array_equal(getattr(ra, key), getattr(rb, key),
+                                 equal_nan=key == "loss")]
     if len(ra.requested) != len(rb.requested) or not all(
             (a is None and b is None) or np.array_equal(a, b)
             for a, b in zip(ra.requested, rb.requested)):
@@ -1535,15 +1663,15 @@ def phase_cifar_chunked(torch, shards, test, profile: bool):
 
     def timed_captures(eng):
         spans = []
-        capture = eng._capture
+        capture = eng._graphs._capture
 
-        def timed(key):
+        def timed(body, key):
             t0 = time.perf_counter()
-            out = capture(key)
+            out = capture(body, key)
             torch.cuda.synchronize()
             spans.append((key, time.perf_counter() - t0))
             return out
-        eng._capture = timed
+        eng._graphs._capture = timed
         return spans
 
     def pool_bytes():
@@ -1590,10 +1718,15 @@ def phase_cifar_chunked(torch, shards, test, profile: bool):
     h = FIG5["H"]
     draw_ms = device_ms(lambda: store.draw(eng._data, eng.samp, h), reps=5,
                         warmup=1)
-    perm_ms = device_ms(store._perm)
+    # the permutations a draw of H steps hashes and sorts: W a row
+    W = (h - 1) // store._epoch_batches + 1
+    rows = torch.arange(store.n, device=store.device)
+    ahead = eng.samp.epoch.unsqueeze(1) + torch.arange(
+        1, W + 1, device=store.device)
+    perm_ms = device_ms(lambda: store._perm(rows, store.data[2], ahead))
     say(f"cifar chunked: the draw at H {h}: {draw_ms:.3f} ms on the device, "
-        f"of which {h} permutations of (6, {store.capacity}) at "
-        f"{perm_ms:.4f} ms each")
+        f"of which its {W} permutations a row of (6, {store.capacity}) "
+        f"{perm_ms:.4f} ms")
     eng.close()
     del eng, res
     gc.collect()
@@ -2050,7 +2183,9 @@ def phase_fig5_partial(torch, dev, shards, test):
     ``draw_gathered``, checked equal to ``draw``'s rows) against the
     masked round from the same plan, params, BatchNorm state and full
     batches, on the CPU and on the card: floats within rtol=1e-4,
-    atol=1e-6, integers exactly; and rAge-k with
+    atol=1e-6 (a client whose ReLU inputs change sign on the card held to
+    the CPU's gradient under the card's branches, as in cifar parity),
+    integers exactly; and rAge-k with
     error feedback, gathered, 4 rounds chunked against 4 stepwise at M 2
     under ``device.deterministic()``, bitwise. Returns the launch
     counts."""
@@ -2112,13 +2247,20 @@ def phase_fig5_partial(torch, dev, shards, test):
     plan = card._scheduler.plan(card.sched)
     plan_h = _plan_to(plan, "cpu")
     act = plan.active.nonzero().flatten()
-    state = card._store.gen.get_state()
     bx, by, _ = card._store.draw(card._data, card.samp, hp.H)
-    card._store.gen.set_state(state)
     gx, gy, _ = card._store.draw_gathered(card._data, card.samp, hp.H,
                                           card._compact(plan.active))
     if not (torch.equal(gx, bx[act]) and torch.equal(gy, by[act])):
         raise AssertionError("fig5 partial: draw_gathered is not draw's rows")
+    # the branches of the card's masked pass and the CPU's (all six
+    # clients, one layout): a client whose ReLU inputs change sign is held
+    # to the CPU's gradient under the card's branches (as cifar parity)
+    card_br = branch_grad(torch, card_m, bx, by)[0]
+    flips, flipped = flipped_clients(
+        card_br, branch_grad(torch, cpu_m, bx.cpu(), by.cpu())[0],
+        len(shards))
+    forced = (branch_grad(torch, cpu_m, bx.cpu(), by.cpu(), card_br)[1]
+              if flipped else None)
     t0 = time.perf_counter()
     mc = card._round_impl(gx, gy, plan)
     mm = card_m._round_impl(bx, by, plan)
@@ -2145,9 +2287,14 @@ def phase_fig5_partial(torch, dev, shards, test):
                                         **tol)).sum())) for k in a}
 
     fc = floats(mc, card, None)
+    cpu_own = diffs(floats(mg, cpu_g, None), floats(mh, cpu_m, act_h))
+    plain_G = float((fc["G"] - mh["G"][act_h]).abs().max())
+    rows = sorted(flipped)
+    if rows:
+        mh = dict(mh, G=mh["G"].clone())
+        mh["G"][rows] = forced[rows]
     against_cpu = diffs(fc, floats(mh, cpu_m, act_h))
     against_card = diffs(fc, floats(mm, card_m, act))
-    cpu_own = diffs(floats(mg, cpu_g, None), floats(mh, cpu_m, act_h))
     say(f"fig5 partial parity: one gathered rage_k round (clients "
         f"{act.tolist()}, batch {hp.batch_size}, H {hp.H}) on the card "
         f"{dt:.2f} s with the masked one, the CPU's masked {dt_h:.2f} s; max "
@@ -2158,7 +2305,11 @@ def phase_fig5_partial(torch, dev, shards, test):
         + ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n)
                     in against_card.items())
         + f"; the CPU's own gathered round against its masked one (2 groups "
-        f"against 6): G {cpu_own['G'][0]:.3e} ({cpu_own['G'][1]})")
+        f"against 6): G {cpu_own['G'][0]:.3e} ({cpu_own['G'][1]}); ReLU "
+        f"inputs of another sign on the card, a ReLU call each: {flips}"
+        + (f", so G's rows {rows} are the CPU's gradient under the card's "
+           f"branches (against the CPU's own: max |diff| {plain_G:.3e})"
+           if rows else ""))
     for k in fc:
         for want, eng in ((floats(mh, cpu_m, act_h), "the CPU's masked"),
                           (floats(mm, card_m, act), "the card's masked")):
@@ -2833,7 +2984,8 @@ def phase_age_memory(torch, dev):
                 f"{eng.age.device_bytes} after the first compaction (C {c}, "
                 f"age rows {rows}, {eng.age.device_bytes / init_b:.4f} of "
                 f"init); allocated {before} -> {after} B across the apply "
-                f"(graphs left {walls['graphs_after_apply']}); its pull: clustering input {got} B "
+                f"(graphs left {walls['graphs_after_apply']}); its pull: "
+                f"clustering input {got} B "
                 f"(== clustering_input_bytes), age rows "
                 f"{eng.pull_bytes['age_rows']} B; wall: drain "
                 f"{walls['drain_ms']:.3f} ms, DBSCAN+merge "
@@ -2920,7 +3072,7 @@ def phase_fig5_hier(torch, shards, test):
             f"(clustering_input_bytes x 2 = {want}) and age rows "
             f"{eng.pull_bytes['age_rows']} B; recluster {eng.recluster_s:.3f}"
             f" s on the worker, {eng.recluster_wait_s:.3f} s waited; "
-            f"captures {eng.capture_s:.3f} s, graphs "
+            f"captures {eng._graphs.capture_s:.3f} s, graphs "
             f"{sorted(eng._graphs, key=str)}")
         if eng.pull_bytes["clustering_input"] != want:
             raise AssertionError(f"fig5 hier {layout}: boundary pull")
@@ -3102,6 +3254,596 @@ def phase_fig5_resume(torch, shards, test, scratch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6n-6p: faults through the engine, and the async service
+# ---------------------------------------------------------------------------
+
+# the faulted fig3 runs: the reference's fault-plane tests' model
+FAULTS_FIG3 = dict(p_nan=0.2, p_crash=0.1, p_drop=0.1, seed=9)
+# the mask rates' model and its draws
+FAULT_RATES = (dict(p_crash=0.1, p_nan=0.2, p_inf=0.05, p_byz=0.05,
+                    p_drop=0.1, dark=(3,), seed=4), 1000)
+# handed-in masks of the card == CPU round: crash, nan, inf, byz, drop,
+# one lane in each label-pair cluster
+FAULT_MASKS = ((2,), (5,), (7,), (1,), (8,))
+# the async service at fig3: K 5, V 4 under hetero 1.0 (the reference's
+# service benches' setting), 20 aggregations
+ASYNC_FIG3 = dict(buffer_k=5, version_window=4, staleness_eta=0.5)
+ASYNC_AGGS = 20
+# the degenerate service's losses against the engine's: the card's
+# one-row GEMM rounds otherwise than a row of the batched one
+DEGENERATE_RTOL = 1e-3
+# fig5's service: 2 aggregations at K 6, V 2, H 10
+ASYNC_FIG5 = dict(H=10, buffer_k=6, version_window=2, staleness_eta=0.5)
+
+
+def faulted_rows_check(torch, dev, gen):
+    """The report (``threshold_topk_batch``, and ``threshold_topk``: the
+    baselines', which reads the corrupted rows of rTop-k and CAFe) on the
+    card against the CPU exactly, on the rows the fault lanes make: all
+    NaN, all +inf, all -inf, Byzantine-scaled (1e8) gradients, and rows
+    with a few NaN and inf lanes, at fig3 and at the CIFAR shape; at each
+    ``SERVICE_REPORT`` each such row alone; two launches a call."""
+    for n, d, r in REPORT_SHAPES + SERVICE_REPORT:
+        g = torch.randn((6, d), generator=gen, device=dev)
+        g[0] = float("nan")
+        g[1] = float("inf")
+        g[2] = -float("inf")
+        g[3] *= 1e8
+        g[4, torch.randperm(d, generator=gen, device=dev)[:5]] = float("nan")
+        g[5, torch.randperm(d, generator=gen, device=dev)[:3]] = float("inf")
+        for rows in ([g[:n]] if n > 1 else g.split(1)):
+            report_exact(torch, rows, r)
+            report_exact(torch, rows, r, baselines=True)
+    say("  the report on faulted rows (all NaN, all +inf, all -inf, x1e8, "
+        "a few NaN and inf lanes): card == CPU at fig3 and CIFAR, and each "
+        "row alone at the service's (1, d), both report calls, two "
+        "launches a call")
+
+
+class _HandedMasks:
+    """A FaultModel's ``round_masks`` returning fixed masks on its device
+    (the round's other draws are the model's own)."""
+
+    def __init__(self, model, masks):
+        self.model, self.masks = model, masks
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def round_masks(self, key, rnd):
+        return tuple(m.to(self.model.device) for m in self.masks)
+
+
+def _fault_rates(torch, dev):
+    """The lanes' rates over ``FAULT_RATES`` rounds (and as many
+    dispatches) against their probabilities, within 5 sigma a lane, the
+    dark client crashed every round."""
+    from repro_torch.fl.faults import FaultModel
+
+    kw, rounds = FAULT_RATES
+    f = FaultModel(10, device=dev, **kw)
+    t = torch.arange(rounds, device=dev)
+    masks = [torch.stack(m) for m in zip(*(f.round_masks(77, r)
+                                           for r in range(rounds)))]
+    fates = f.dispatch_fate(77, torch.arange(10, device=dev).view(-1, 1),
+                            t.view(1, -1))
+    out = []
+    for lane, m, fate in zip(("crash", "nan", "inf", "byz", "drop"), masks,
+                             fates):
+        p = kw.get(f"p_{lane}", 0.0)
+        free = torch.ones(10, dtype=torch.bool)
+        if lane == "crash":
+            if not (m[:, 3].all() and fate[3].all()):
+                raise AssertionError("the dark client missed a crash")
+            free[3] = False
+        rate = float(m[:, free.to(dev)].float().mean())
+        drate = float(fate[free.to(dev)].float().mean())
+        sd = (p * (1 - p) / (rounds * int(free.sum()))) ** 0.5
+        if abs(rate - p) > 5 * sd or abs(drate - p) > 5 * sd:
+            raise AssertionError(f"fault lane {lane}: rates {rate:.4f} "
+                                 f"(rounds), {drate:.4f} (dispatches) "
+                                 f"against p {p}")
+        out.append(f"{lane} {rate:.4f}/{drate:.4f} (p {p})")
+    say(f"faults: lane rates over {rounds} rounds / dispatches of 10 "
+        f"clients (the dark client 3 aside): " + ", ".join(out)
+        + "; client 3 crashed in every round and dispatch")
+
+
+def phase_faults(torch, dev, shards, test, scratch):
+    """6n: faults through ``FederatedEngine`` at fig3. The lanes' rates;
+    one faulted round card == CPU from handed params, batches and masks
+    (``FAULT_MASKS``), masked and gathered, dense and hierarchical; 20
+    rAge-k rounds under ``FAULTS_FIG3`` stepped and chunked, bitwise
+    (counters included), every round's launches the unfaulted round's,
+    finite with the gate and NaN without; resume bitwise under faults; a
+    faulted chunk with no host sync; the chunked rate with and without
+    faults in turns. Returns the runs' launch counts."""
+    import numpy as np
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.fl.faults import FaultModel
+    from repro_torch.kernels import build
+
+    _fault_rates(torch, dev)
+    tol = dict(rtol=1e-4, atol=1e-6)
+    masks = [torch.tensor([i in ids for i in range(10)])
+             for ids in FAULT_MASKS]
+    for layout in ("dense", "hierarchical"):
+        for compute in ("masked", "gathered"):
+            hp = RAgeKConfig(**FIG3, age_layout=layout)
+            card, cpu = (FederatedEngine(
+                "mlp", shards, test, hp, seed=0, device=where,
+                compute=compute, faults=FaultModel(10, device=where,
+                                                   **FAULTS_FIG3))
+                for where in (dev, "cpu"))
+            for e in (card, cpu):
+                e._faults = _HandedMasks(e._faults, masks)
+            plan = card._scheduler.plan(card.sched)
+            act = plan.active & ~masks[0].to(dev)
+            bx, by, _ = (card._store.draw_gathered(
+                card._data, card.samp, hp.H, card._compact(act))
+                if compute == "gathered"
+                else card._store.draw(card._data, card.samp, hp.H))
+            mc = card._round_impl(bx, by)
+            mh = cpu._round_impl(bx.cpu(), by.cpu())
+            name = f"{layout} {compute}"
+            torch.testing.assert_close(mc["losses"].cpu(), mh["losses"],
+                                       equal_nan=True, **tol)
+            torch.testing.assert_close(card.g_params.cpu(), cpu.g_params,
+                                       **tol)
+            same = [torch.equal(a.cpu(), b) for a, b in (
+                (mc["idx"], mh["idx"]), (mc["faults"], mh["faults"]),
+                (card.sched.aoi, cpu.sched.aoi))]
+            same += [torch.equal(a.cpu(), b) for a, b in zip(card.age, cpu.age)
+                     if a is not None]
+            if not all(same) or mc["faults"].tolist() != [3, 1, 1]:
+                raise AssertionError(f"faults parity {name}: {same}, "
+                                     f"counts {mc['faults'].tolist()}")
+            say(f"faults: one faulted fig3 rAge-k round {name} card == CPU "
+                f"from handed masks (indices, ages, "
+                f"{'log' if layout == 'hierarchical' else 'counts'}, AoI "
+                f"exact; quarantined/crashed/dropped "
+                f"{mc['faults'].tolist()})")
+    # 20 rounds stepped and chunked under the fault model
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    hp = RAgeKConfig(**FIG3)
+    path = ("rage_k", "segmented")
+
+    def make(**kw):
+        return FederatedEngine("mlp", shards, test, hp, seed=0, faults=(
+            FaultModel(10, device=dev, **FAULTS_FIG3)), **kw)
+    step = make()
+    launches, rs, _ = drive_chunked(torch, step, 20, path, 20, driver="run")
+    add(launches)
+    chunk = make()
+    launches, rc, tc = drive_chunked(torch, chunk, 20, path, 20)
+    add(launches)
+    bad = same_run(torch, step, rs, chunk, rc)
+    if bad:
+        raise AssertionError(f"faults: stepped and chunked differ in {bad}")
+    if not (torch.isfinite(chunk.g_params).all()
+            and sum(rc.n_quarantined) and sum(rc.n_crashed)):
+        raise AssertionError("faults: the gated run is not finite, or "
+                             "nothing was quarantined or crashed")
+    say(f"faults: fig3 rage_k, 20 rounds under {FAULTS_FIG3}: stepped == "
+        f"chunked bitwise (losses, picks, labels, counters, every state "
+        f"buffer); quarantined {sum(rc.n_quarantined)}, crashed "
+        f"{sum(rc.n_crashed)}, dropped {sum(rc.n_dropped)}; labels "
+        f"{rc.cluster_labels[-1].tolist()}; params finite; every round's "
+        f"launches the unfaulted round's {PER_ROUND[path]}")
+    sync_free_chunk(torch, chunk, 5)
+    say("faults: 5 faulted replays under set_sync_debug_mode('error'): no "
+        "host sync")
+    off = make(quarantine=False)
+    build.reset_launches()
+    off.run_scanned(20, eval_every=20)
+    add(build.LAUNCHES)
+    if torch.isfinite(off.g_params).all():
+        raise AssertionError("faults: without the gate the params stayed "
+                             "finite")
+    say("faults: the same 20 rounds without the gate: the params go NaN")
+    for e in (step, chunk, off):
+        e.close()
+    # resume under faults, both layouts
+    for layout in ("dense", "hierarchical"):
+        hpl = RAgeKConfig(**HIER_FIG3, age_layout=layout)
+
+        def make_l():
+            return FederatedEngine("mlp", shards, test, hpl, seed=0,
+                                   faults=FaultModel(10, device=dev,
+                                                     **FAULTS_FIG3))
+        ckpt = os.path.join(scratch, f"faults_{layout}")
+        ref = make_l()
+        with AsyncCheckpointer(ckpt, keep=0) as ck:
+            rr = ref.run_scanned(20, eval_every=5, checkpointer=ck,
+                                 ckpt_every=5)
+        build.reset_launches()
+        eng, res = _resumed(torch, make_l, ckpt, 10, "run_scanned", 10, 5)
+        add(build.LAUNCHES)
+        bad = same_run(torch, ref, rr, eng, res)
+        if not np_equal(ref.freq_matrix, eng.freq_matrix):
+            bad.append("freq_matrix")
+        if bad:
+            raise AssertionError(f"faults resume {layout}: differs in {bad}")
+        say(f"faults: fig3 {layout} at M 5 under faults, saved every 5, "
+            f"resumed at 10: bitwise the uninterrupted 20 rounds, counters "
+            f"{sum(res.n_quarantined)}/{sum(res.n_crashed)}/"
+            f"{sum(res.n_dropped)} (quarantined/crashed/dropped)")
+        ref.close()
+        eng.close()
+    # the chunked rate with and without faults, in turns
+    engines = {"none": FederatedEngine("mlp", shards, test, hp, seed=0),
+               "faults": make()}
+    for e in engines.values():
+        e.run_scanned(40, eval_every=20)
+    times = {v: [] for v in engines}
+    for v in ("none", "faults", "faults", "none", "none", "faults"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[v].run_scanned(20, eval_every=20)
+        torch.cuda.synchronize()
+        times[v].append((time.perf_counter() - t0) * 1e3 / 20)
+    prof = {v: profile_window(torch, lambda: e.run_scanned(
+        10, eval_every=10), 10) for v, e in engines.items()}
+    for v, e in engines.items():
+        say(f"faults: a replayed fig3 round, {v}: " + device_kernels(
+            torch, lambda: e._chunk(10), 10, "a round"))
+    say("faults: fig3 rage_k chunked, windows of 20 rounds in turns: "
+        + "; ".join(f"{v} " + ", ".join(f"{t:.3f}" for t in ts)
+                    + f" ms a round (profiled 10: busy "
+                    f"{prof[v]['busy_ms']:.3f} ms a round)"
+                    for v, ts in times.items()))
+    for e in engines.values():
+        e.close()
+    return total
+
+
+def device_kernels(torch, fn, calls: int, per: str) -> str:
+    """The device kernels ``fn`` runs (``calls`` units of work): their
+    count and device ms per unit, and the six that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    count = sum(e.count for e in rows) / calls
+    busy = sum(_dev_us(e) for e in rows) / calls / 1e3
+    top = sorted(rows, key=_dev_us, reverse=True)[:6]
+    return (f"{count:.0f} device kernels {per}, {busy:.3f} ms of kernel "
+            f"time; the most: " + ", ".join(
+                f"{kernel_name(e.key)} {_dev_us(e) / calls:.1f} us "
+                f"x{e.count / calls:g}" for e in top))
+
+
+def _tensors(tree) -> list:
+    """The tensors of a tree of NamedTuples, tuples and dicts, in order."""
+    if tree is None:
+        return []
+    if hasattr(tree, "shape"):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    return [t for x in tree for t in _tensors(x)]
+
+
+def _svc_diff(torch, a, b) -> list:
+    """The fields of two services' states that differ bitwise."""
+    return [name for name in a.state._fields
+            if not all(torch.equal(x, y) for x, y in zip(
+                _tensors(getattr(a.state, name)),
+                _tensors(getattr(b.state, name))))]
+
+
+def _host_replay(svc, events: int):
+    """The event order and clocks a numpy replay of the argmin loop gives
+    from ``svc``'s latency draws (float32 clock, ties to the lowest id)."""
+    import numpy as np
+    lat, n = svc._latency, svc.n
+    nd = np.zeros(n, np.int64)
+    key = int(svc.seed)
+    next_done = np.array([float(lat.dispatch_s(key, i, 0))
+                          for i in range(n)], np.float32)
+    clients, clocks = [], []
+    for _ in range(events):
+        i = int(np.argmin(next_done))
+        t = next_done[i]
+        clients.append(i)
+        clocks.append(t)
+        nd[i] += 1
+        next_done[i] = np.float32(t + np.float32(float(
+            lat.dispatch_s(key, i, int(nd[i])))))
+    return clients, clocks
+
+
+def event_reports(torch, svc, n_events: int) -> dict:
+    """``n_events`` eager events of the report-mode service ``svc``; each
+    landing's candidates (the report's kernels inside the event, on the
+    landing's (1, d) update row) against the plain report
+    (``threshold_topk_batch_plain``) on the same row, exactly. Returns
+    the events' metrics."""
+    from repro_torch.kernels import report as RP
+
+    phase, seen = svc._client_phase, []
+
+    def record(*args):
+        out = phase(*args)
+        seen.append((out[3], out[4]))
+        return out
+    svc._client_phase = record
+    try:
+        m = svc._advance(n_events, eager=True)
+    finally:
+        svc._client_phase = phase
+    for j, (g, cand) in enumerate(seen):
+        if g.shape[0] != 1 or not torch.equal(
+                cand, RP.threshold_topk_batch_plain(g, svc.hp.r)):
+            raise AssertionError(f"event {j}: the report's candidates on "
+                                 f"its {tuple(g.shape)} row differ from "
+                                 f"the plain report's")
+    return m
+
+
+def phase_async_fig3(torch, dev, shards, test, scratch):
+    """6o: ``AsyncService`` at fig3. The degenerate service (K = N, V = 1,
+    equal latencies) against the engine over ``ASYNC_AGGS`` aggregations
+    (the first round and quantity that differ, if any; losses within
+    ``DEGENERATE_RTOL``; the label pairs at 20); at ``ASYNC_FIG3`` under
+    hetero 1.0, report and dispatch modes in both layouts: the event order
+    against a host replay of the port's own draws, graph replays against
+    eager events bitwise (each eager landing's candidates against the
+    plain report, ``event_reports``), each event's
+    launches (the report's two kernels a report-mode landing, none in
+    dispatch mode); a chunk of replays with no host sync; faults with a
+    dark client; resume bitwise; events/s and ms per aggregation, eager
+    and replayed, in turns. Returns the runs' launch counts."""
+    import numpy as np
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.fl.faults import FaultModel
+    from repro_torch.fl.latency import LatencyModel
+    from repro_torch.fl.service import AsyncService
+    from repro_torch.kernels import build
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # the degenerate service against the engine
+    n, aggs = len(shards), ASYNC_AGGS
+    hp = RAgeKConfig(**FIG3)
+    eng = FederatedEngine("mlp", shards, test, hp, seed=0)
+    er = eng.run_scanned(aggs, eval_every=1)
+    svc = AsyncService("mlp", shards, test, hp, seed=0)
+    build.reset_launches()
+    sr = svc.run_async(aggs, eval_every=1)
+    add(build.LAUNCHES)
+    labels = sr.cluster_labels[-1].tolist()
+    if labels != PAIRS or sr.clients != list(range(n)) * aggs:
+        raise AssertionError(f"degenerate service: labels {labels} at "
+                             f"{aggs}, or landings out of client order")
+    first = None
+    for t in range(aggs):
+        diff = [q for q, a, b in (
+            ("loss", er.loss[t], sr.loss[t]), ("acc", er.acc[t], sr.acc[t]),
+            ("requested", er.requested[t].tolist(),
+             np.stack(sr.requested[t * n:(t + 1) * n]).tolist()),
+            ("labels", er.cluster_labels[t].tolist(),
+             sr.cluster_labels[t].tolist())) if a != b]
+        if diff and first is None:
+            first = (t + 1, diff)
+    same_params = torch.equal(eng.g_params, svc.state.g_params)
+    if not np.allclose(sr.loss, er.loss, rtol=DEGENERATE_RTOL, atol=0):
+        raise AssertionError(f"degenerate service: losses {sr.loss} against "
+                             f"the engine's {er.loss}")
+    say(f"async: the degenerate service (K = N, V = 1, equal latencies) "
+        f"against the engine over {aggs} aggregations: "
+        + ("bitwise (losses, accuracies, picks, labels, params)"
+           if first is None and same_params else
+           (f"first differs at round {first[0]} in {first[1]}"
+            if first else "losses, accuracies, picks and labels equal at "
+            "every round") + f"; params "
+           f"{'equal' if same_params else 'differ'} at the end (max |diff| "
+           f"{float((eng.g_params - svc.state.g_params).abs().max()):.3e})")
+        + f"; labels {labels} at {aggs}; losses {er.loss[-1]:.6f} / "
+        f"{sr.loss[-1]:.6f}")
+    eng.close()
+    # hetero 1.0 at K 5, V 4: both modes, both layouts
+    want_event = {"report": {"maghist_batch": 1, "threshold_topk_batch": 1},
+                  "dispatch": {}}
+
+    def make(solicit, layout="dense", faults=None):
+        cfg = RAgeKConfig(**FIG3, **ASYNC_FIG3, age_layout=layout)
+        return AsyncService(
+            "mlp", shards, test, cfg, seed=0, solicit=solicit, faults=faults,
+            latency=LatencyModel(n, hetero=1.0, jitter=0.25, seed=0))
+    for layout in ("dense", "hierarchical"):
+        for solicit in ("report", "dispatch"):
+            name = f"{solicit} {layout}"
+            want = {k: want_event[solicit].get(k, 0) for k in build.LAUNCHES}
+            svc = make(solicit, layout)
+            build.reset_launches()
+            res = svc.run_async(aggs, eval_every=aggs)
+            events = len(res.clients)
+            if dict(build.LAUNCHES) != {k: events * v
+                                        for k, v in want.items()}:
+                raise AssertionError(f"async {name}: {events} events "
+                                     f"launched {dict(build.LAUNCHES)}")
+            add(build.LAUNCHES)
+            clients, clocks = _host_replay(svc, events)
+            if res.clients != clients or not np.array_equal(
+                    np.asarray(res.event_clock, np.float32),
+                    np.asarray(clocks, np.float32)):
+                raise AssertionError(f"async {name}: the event order is "
+                                     f"not the host replay's")
+            # graph replays against eager events, from one seed
+            a, b = make(solicit, layout), make(solicit, layout)
+            ma = a._advance(50)
+            mb = (event_reports(torch, b, 50) if solicit == "report"
+                  else b._advance(50, eager=True))
+            bad = [k for k in ma if not np.array_equal(ma[k], mb[k],
+                                                       equal_nan=True)]
+            bad += _svc_diff(torch, a, b)
+            if bad:
+                raise AssertionError(f"async {name}: replays differ from "
+                                     f"eager events in {bad}")
+            for key, (_, tally, _) in a._graphs.items():
+                if tally != want:
+                    raise AssertionError(f"async {name}: graph {key} "
+                                         f"launches {tally}")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a._chunk(10)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            say(f"async: fig3 {name}, K {svc.K}, V {svc.V}, hetero 1.0: "
+                f"{aggs} aggregations in {events} events, the order and "
+                f"clocks the host replay's; staleness max "
+                f"{max(res.staleness)}; labels "
+                f"{res.cluster_labels[-1].tolist()}; loss {res.loss[-1]:.4f}"
+                f", acc {res.acc[-1]:.4f}; 50 replayed events == 50 eager "
+                f"bitwise (metrics, every state field)"
+                + ("; each eager landing's candidates == the plain report "
+                   "on its (1, d) row" if solicit == "report" else "")
+                + f"; graphs "
+                f"{sorted(a._graphs)}; launches an event {want_event[solicit]}"
+                f"; 10 replays under set_sync_debug_mode('error'): no host "
+                f"sync")
+            for s in (svc, a, b):
+                s.close()
+    # faults with a dark client
+    flt = FaultModel(n, dark=(3,), device=dev, **FAULTS_FIG3)
+    svc = make("report", faults=flt)
+    build.reset_launches()
+    res = svc.run_async(aggs, eval_every=aggs)
+    add(build.LAUNCHES)
+    s = res.summary()
+    ev = np.asarray(res.clients)
+    if not (np.asarray(res.crashed)[ev == 3].all()
+            and not svc.freq_matrix[3].any()
+            and torch.isfinite(svc.state.g_params).all()
+            and s["total_quarantined"] and s["total_crashed"]):
+        raise AssertionError(f"async faults: {s}")
+    say(f"async: fig3 report under {FAULTS_FIG3}, dark (3,): {aggs} "
+        f"aggregations in {s['events']} events; quarantined "
+        f"{s['total_quarantined']}, crashed {s['total_crashed']} (client 3 "
+        f"{int((ev == 3).sum())} of them), dropped {s['total_dropped']}, "
+        f"retried {s['total_retried']}; params finite; loss "
+        f"{res.loss[-1]:.4f}")
+    svc.close()
+    # resume, faulted, in both layouts and modes
+    for layout, solicit in (("dense", "report"), ("hierarchical",
+                                                  "dispatch")):
+        def make_r():
+            return make(solicit, layout, FaultModel(n, device=dev,
+                                                    **FAULTS_FIG3))
+        ckpt = os.path.join(scratch, f"async_{layout}")
+        ref = make_r()
+        with AsyncCheckpointer(ckpt, keep=0) as ck:
+            rr = ref.run_async(aggs, eval_every=5, checkpointer=ck,
+                               ckpt_every=10)
+        b = make_r()
+        b.load_state(ckpt, step=10)
+        build.reset_launches()
+        rb = b.run_async(aggs - 10, eval_every=5)
+        add(build.LAUNCHES)
+        bad = _svc_diff(torch, ref, b)
+        if (bad or rb.loss != rr.loss[-len(rb.loss):]
+                or rb.clients != rr.clients[-len(rb.clients):]):
+            raise AssertionError(f"async resume {layout} {solicit}: "
+                                 f"differs in {bad}")
+        say(f"async: fig3 {solicit} {layout} under faults, saved at 10, "
+            f"resumed: bitwise the uninterrupted {aggs} aggregations "
+            f"(losses, events, every state field)")
+        ref.close()
+        b.close()
+    # events/s, eager and replayed, in turns
+    svcs = {"replayed": make("report"), "eager": make("report")}
+    for v, s in svcs.items():
+        s._advance(25, eager=v == "eager")
+    times = {v: [] for v in svcs}
+    for v in ("replayed", "eager", "eager", "replayed", "replayed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = svcs[v]._advance(50, eager=v == "eager")
+        torch.cuda.synchronize()
+        times[v].append((time.perf_counter() - t0, int(m["flushed"].sum())))
+    say("async: fig3 report, K 5, windows of 50 events in turns: " + "; ".join(
+        f"{v} " + ", ".join(f"{50 / t:.1f} events/s ({t * 1e3 / f:.2f} ms an "
+                            f"aggregation)" for t, f in ts)
+        for v, ts in times.items()))
+    prof = profile_window(torch, lambda: svcs["replayed"]._advance(20), 20)
+    say(f"async: 20 replayed events profiled: {prof['ms']:.3f} ms an event, "
+        f"device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['ms']:.1f}%), cudaGraphLaunch "
+        f"{prof['graph_launch']:.1f} an event; " + device_kernels(
+            torch, lambda: svcs["replayed"]._chunk(10), 10, "an event"))
+    for s in svcs.values():
+        s.close()
+    return total
+
+
+def phase_fig5_async(torch, shards, test):
+    """6p: ``AsyncService("cnn")`` at fig5's width, ``ASYNC_FIG5`` (K 6, V
+    2, H 10) under hetero 1.0: 2 aggregations, finite losses, the
+    report's two launches an event (on a (1, 2,515,338) row), ms an
+    event; then a replayed window of 6 events, and two eager events
+    whose candidates are held to the plain report. Returns the launch
+    counts."""
+    import numpy as np
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.fl.latency import LatencyModel
+    from repro_torch.fl.service import AsyncService
+    from repro_torch.kernels import build
+
+    hp = RAgeKConfig(**{**FIG5, **ASYNC_FIG5})
+    svc = AsyncService("cnn", shards, test, hp, seed=0,
+                       latency=LatencyModel(len(shards), hetero=1.0,
+                                            jitter=0.25, seed=0))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = svc.run_async(2, eval_every=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    events = len(res.clients)
+    want = {k: events * int(k in ("maghist_batch", "threshold_topk_batch"))
+            for k in launches}
+    if launches != want or not np.isfinite(res.loss).all():
+        raise AssertionError(f"fig5 async: {events} events launched "
+                             f"{launches}; losses {res.loss}")
+    t0 = time.perf_counter()
+    svc._advance(6)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) * 1e3 / 6
+    launches = dict(build.LAUNCHES)
+    event_reports(torch, svc, 2)
+    say(f"fig5 async: Network-2, K {svc.K}, V {svc.V}, H {hp.H}, hetero "
+        f"1.0: {events} events for 2 aggregations in {dt:.2f} s (capture "
+        f"{svc._graphs.capture_s:.2f} s included), losses {res.loss}, "
+        f"staleness {res.staleness}; the report's two kernels once an "
+        f"event; 6 more replayed events {per:.1f} ms an event; 2 eager "
+        f"landings' candidates == the plain report on their (1, "
+        f"{svc.d:,}) rows")
+    svc.close()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3158,6 +3900,8 @@ def main() -> int:
     scratch = os.path.join(ROOT, "build", "ckpt_smoke")
     shutil.rmtree(scratch, ignore_errors=True)
     resume = phase_resume(torch, shards, test, scratch)
+    faults = phase_faults(torch, dev, shards, test, scratch)
+    async_fig3 = phase_async_fig3(torch, dev, shards, test, scratch)
     del shards, test, x, y
     age_mem, seg_bench = phase_age_memory(torch, dev)
 
@@ -3174,6 +3918,7 @@ def main() -> int:
     fig5_partial = phase_fig5_partial(torch, dev, shards, test)
     fig5_hier = phase_fig5_hier(torch, shards, test)
     fig5_resume = phase_fig5_resume(torch, shards, test, scratch)
+    fig5_async = phase_fig5_async(torch, shards, test)
     shutil.rmtree(scratch, ignore_errors=True)
     del shards, test
     torch.cuda.empty_cache()
@@ -3186,8 +3931,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
-            age_mem, cifar, cifar_chunked, fig5_partial, fig5_hier,
-            fig5_resume, smoke, serve, long))
+            faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
+            fig5_hier, fig5_resume, fig5_async, smoke, serve, long))
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

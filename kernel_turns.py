@@ -21,7 +21,11 @@ where ``build/parent`` holds another checkout (``git archive``). Prints:
   10), (6, 1, 2500, 100) and (3, 2, 2500, 100), every slot valid;
 - 20 fig3 rAge-k rounds and 20 rTop-k rounds (median ms), each then 10
   more under ``torch.profiler``: device busy ms, ``cudaLaunchKernel``
-  calls and the round's spans per round.
+  calls and the round's spans per round;
+- fig3 rAge-k through ``run_scanned`` (each round a CUDA graph replay):
+  three windows of 20 rounds after a warm-up window, ms a round, and the
+  device ms of the round's batch draw alone (``DeviceShardStore.draw``,
+  H 4).
 
 Device times are ``chip_smoke.device_ms`` (median of 25 calls, each
 behind a sleep kernel). It exits 2 without a card.
@@ -150,6 +154,22 @@ def main() -> int:
             f"{eng.cluster_of.tolist()}")
         say(f"{tag} fig3 {method} rounds 21-30: "
             + profile_rounds(torch, eng))
+    eng = FederatedEngine("mlp", shards, test, RAgeKConfig(**CS.FIG3),
+                          seed=0)
+    eng.run_scanned(20, eval_every=20)
+    t_windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_scanned(20, eval_every=20)
+        torch.cuda.synchronize()
+        t_windows.append((time.perf_counter() - t0) * 1e3 / 20)
+    draw = CS.device_ms(lambda: eng._store.draw(eng._data, eng.samp,
+                                                CS.FIG3["H"]))
+    say(f"{tag} fig3 rage_k chunked, windows of 20 rounds: "
+        + ", ".join(f"{t:.3f}" for t in t_windows)
+        + f" ms a round; the draw alone {draw:.4f} ms")
+    eng.close()
     return 0
 
 

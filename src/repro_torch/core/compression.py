@@ -1,6 +1,6 @@
-"""Uplink byte accounting: the port's copy of ``bytes_per_index``,
-``value_bytes_of``, ``bytes_per_round`` and ``clustering_input_bytes``
-from ``repro.core.compression``."""
+"""Wire byte accounting: the port's copy of ``bytes_per_index``,
+``value_bytes_of``, ``bytes_per_round``, ``downlink_bytes_per_round`` and
+``clustering_input_bytes`` from ``repro.core.compression``."""
 from __future__ import annotations
 
 import math
@@ -41,6 +41,26 @@ def bytes_per_round(k: int, d: int, value_bytes: int | None = None,
         if index_bytes is None:
             index_bytes = bytes_per_index(d)
         per_client = k * (value_bytes + index_bytes)
+    if m_active is None:
+        return per_client
+    if m_active < 0:
+        raise ValueError(f"m_active must be >= 0, got {m_active}")
+    return m_active * per_client
+
+
+def downlink_bytes_per_round(n_req: int, d: int,
+                             index_bytes: int | None = None,
+                             m_active: int | None = None) -> int:
+    """PS->client solicitation bytes for one client in one round: the
+    ``n_req`` coordinate indices the PS sends (k requested indices in the
+    synchronous protocol, the r stalest in the async service's dispatch
+    mode). The model broadcast, common to every method, is not counted.
+    ``m_active`` gives the round total for that many clients."""
+    if n_req < 0:
+        raise ValueError(f"n_req must be >= 0, got {n_req}")
+    if index_bytes is None:
+        index_bytes = bytes_per_index(d)
+    per_client = n_req * index_bytes
     if m_active is None:
         return per_client
     if m_active < 0:

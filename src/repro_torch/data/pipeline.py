@@ -1,24 +1,35 @@
 """Device-resident client data: the port of ``DeviceShardStore``,
-``SamplerState``, ``draw`` and ``draw_gathered`` from
+``SamplerState``, ``draw``, ``draw_one`` and ``draw_gathered`` from
 ``repro.data.pipeline``.
 
 Every client shard is uploaded once, padded to a common capacity; the
 true per-client lengths bound every permutation, so padding is never
 sampled. Epochs follow ``BatchIterator``: batches are drawn without
 replacement, the tail that does not fill a batch is dropped, and then the
-client reshuffles. Permutations come from a ``torch.Generator`` on the
-store's device (it cannot reproduce the reference's threefry draws; the
-tests hold it to the same properties instead).
+client reshuffles.
 
-The cursors live on the device and the wrap is decided there, as the
-reference decides it in its jitted program: at each local step every
-client draws a fresh permutation, which ``torch.where`` puts in place of
-the old one only in the rows that wrap. A draw thus launches the same
-work whatever the cursors are, has no host sync, and can be captured
-into a CUDA graph and replayed. :meth:`DeviceShardStore.draw_gathered`
-(the compute plane's draw for the active clients only) draws the same
-permutations from the generator and keeps the listed rows, so a
-client's batches do not depend on whether its round was gathered.
+A client's e-th permutation is a function of (store seed, client id, e)
+alone: the row sort of a 32-bit hash of those words and the position
+(``fl.latency.mix32`` rounds, the seed's folded on the host), padding
+keyed past every hash so that it sorts last. ``SamplerState.epoch`` counts each client's
+permutations, so a client's batches depend on nothing but its own draws,
+whoever else drew: :meth:`DeviceShardStore.draw` (every client),
+:meth:`~DeviceShardStore.draw_gathered` (the compute plane's active
+clients) and :meth:`~DeviceShardStore.draw_one` (the async service's
+landing client) give a client the same batches for the same count. (The
+reference keeps a PRNG key per client for the same end; the hash cannot
+reproduce its threefry draws, and the tests hold it to the same
+properties instead.)
+
+The cursors and counters live on the device and the wrap is decided
+there, as the reference decides it in its jitted program. A draw of H
+local steps hashes, for every drawn row, the W permutations it could
+start within those steps (W = ceil(H / the fewest batches an epoch), a
+host int fixed by the shard lengths: 1 at fig3's H 4, 4 at fig5's H 100)
+in one batch, and each step ``torch.where`` puts the next of them in
+place of the old permutation only in the rows that wrap. A draw thus
+launches the same work whatever the cursors are, has no host sync and no
+generator state, and can be captured into a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -29,15 +40,19 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.fl.client import put_rows
+from repro_torch.fl.latency import SHUFFLE, hash32, mix32
 
 
 class SamplerState(NamedTuple):
     """order: (N, capacity) int64 current epoch permutation per client
     (positions >= length hold padding, sorted last, never reached within
-    an epoch); pos: (N,) int64 cursors. Both on the store's device."""
+    an epoch); pos: (N,) int64 cursors; epoch: (N,) int64 permutations
+    each client has drawn (the hash counter of its current ``order``).
+    All on the store's device."""
 
     order: torch.Tensor
     pos: torch.Tensor
+    epoch: torch.Tensor
 
 
 class DeviceShardStore:
@@ -62,65 +77,94 @@ class DeviceShardStore:
                      torch.from_numpy(y).to(self.device),
                      torch.tensor(lengths, dtype=torch.int64,
                                   device=self.device))
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._pos = torch.arange(self.capacity, device=self.device)
+        # the seed's words of the permutation hash, folded on the host
+        self._salt = int(hash32(torch.tensor(seed), SHUFFLE))
+        # the fewest whole batches in an epoch of any client
+        self._epoch_batches = min(lengths) // self.bs
 
-    def _perm(self, rows: torch.Tensor | None = None) -> torch.Tensor:
-        """Fresh permutations of every client's first ``length`` slots;
-        padding slots sort last. ``rows`` ((m,) int64) keeps those
-        clients' rows of the same draw."""
-        u = torch.rand((self.n, self.capacity), generator=self.gen,
-                       device=self.device)
-        lengths = self.data[2]
-        if rows is not None:
-            u, lengths = u.index_select(0, rows), lengths.index_select(0, rows)
-        real = (torch.arange(self.capacity, device=self.device)
-                < lengths.unsqueeze(1))
-        u = torch.where(real, u, 2.0)
-        return torch.argsort(u, dim=1, stable=True)
+    def _perm(self, rows: torch.Tensor, lengths: torch.Tensor,
+              epoch: torch.Tensor) -> torch.Tensor:
+        """The ``epoch``-th permutations of the listed clients ((m,) int64
+        ids and lengths; ``epoch`` (m, W) int64 counters): (m, W, capacity)
+        int64. Real slots sort by 31 bits of their hash (ties in position
+        order), padding after them."""
+        h = mix32(mix32(rows.unsqueeze(1) ^ self._salt) ^ epoch)
+        key = mix32(h.unsqueeze(2) ^ self._pos) >> 1
+        key = torch.where(self._pos < lengths.view(-1, 1, 1), key.to(
+            torch.int32), 2 ** 31 - 1)
+        return torch.argsort(key, dim=2, stable=True)
 
     def init_state(self) -> SamplerState:
-        return SamplerState(order=self._perm(),
-                            pos=torch.zeros(self.n, dtype=torch.int64,
-                                            device=self.device))
+        rows = torch.arange(self.n, device=self.device)
+        epoch = torch.zeros(self.n, dtype=torch.int64, device=self.device)
+        return SamplerState(
+            order=self._perm(rows, self.data[2], epoch.unsqueeze(1))[:, 0],
+            pos=torch.zeros_like(epoch), epoch=epoch)
 
     def draw(self, data, state: SamplerState, H: int):
         """The next H batches per client: (bx (N, H, B, ...), by (N, H, B),
-        new_state). Each local step draws one permutation per client (N x
-        capacity uniforms and a row sort) and keeps it where the client
-        wraps."""
+        new_state)."""
         x, y, lengths = data
-        sel, order, pos = self._select(lengths, state.order, state.pos, H)
-        client = torch.arange(self.n, device=self.device).view(-1, 1, 1)
-        return x[client, sel], y[client, sel], SamplerState(order, pos)
+        rows = torch.arange(self.n, device=self.device)
+        sel, new = self._select(rows, lengths, state, H)
+        client = rows.view(-1, 1, 1)
+        return x[client, sel], y[client, sel], new
+
+    def draw_one(self, data, state: SamplerState, H: int, i: torch.Tensor):
+        """The next H batches of client ``i`` only (a device index, so a
+        replayed graph draws for the client it lands). Returns (bx (H, B,
+        ...), by (H, B), new_state) with only row ``i`` advanced: the
+        row :meth:`draw` would give it at the same count."""
+        x, y, lengths = data
+        rows = i.reshape(1).to(torch.int64)
+        sel, new = self._select(rows, lengths.index_select(0, rows),
+                                _take(state, rows), H)
+        client = rows.view(-1, 1, 1)
+        return (x[client, sel][0], y[client, sel][0],
+                put_rows(state, rows, new))
 
     def draw_gathered(self, data, state: SamplerState, H: int,
                       idx: torch.Tensor):
         """The next H batches of the clients in ``idx`` only: (m,) ids
         padded with the sentinel N. Returns (bx (m, H, B, ...), by (m, H,
-        B), new_state) with only the listed clients' cursors and
-        permutations advanced, by the math :meth:`draw` applies to their
-        rows (the same permutations: each local step draws all N and
-        keeps the listed rows). Padded slots read a clipped duplicate row
-        and write nothing back."""
+        B), new_state) with only the listed clients' rows advanced, each
+        as :meth:`draw` advances it. Padded slots read a clipped duplicate
+        row and write nothing back."""
         x, y, lengths = data
         rows = idx.clamp(max=self.n - 1).to(torch.int64)
-        sel, order, pos = self._select(
-            lengths.index_select(0, rows), state.order.index_select(0, rows),
-            state.pos.index_select(0, rows), H, rows)
+        sel, new = self._select(rows, lengths.index_select(0, rows),
+                                _take(state, rows), H)
         client = rows.view(-1, 1, 1)
         return x[client, sel], y[client, sel], put_rows(
-            state, idx.to(torch.int64), SamplerState(order, pos))
+            state, idx.to(torch.int64), new)
 
-    def _select(self, lengths, order, pos, H: int, rows=None):
-        """H steps of the sampler on the given rows: (sample indices (rows,
-        H, B), order, pos). The wrap, reshuffle and cursor math of every
+    def _select(self, rows, lengths, state: SamplerState, H: int):
+        """H steps of the sampler on the clients ``rows`` (their lengths
+        and sampler rows given): (sample indices (rows, H, B), their new
+        SamplerState rows). The wrap, reshuffle and cursor math of every
         draw lives here."""
+        order, pos, epoch = state
+        # a client starts at most W permutations in H steps: after its
+        # first wrap it wraps every epoch_batches steps
+        W = (H - 1) // self._epoch_batches + 1
+        ahead = self._perm(rows, lengths, epoch.unsqueeze(1) + torch.arange(
+            1, W + 1, device=self.device))
         span = torch.arange(self.bs, device=self.device)
+        wraps = torch.zeros_like(pos)
         sels = []
         for _ in range(H):
             wrap = pos + self.bs > lengths
-            order = torch.where(wrap.unsqueeze(1), self._perm(rows), order)
+            nxt = ahead.gather(1, wraps.clamp(max=W - 1).view(-1, 1, 1)
+                               .expand(-1, 1, self.capacity))[:, 0]
+            order = torch.where(wrap.unsqueeze(1), nxt, order)
+            wraps = wraps + wrap.to(torch.int64)
             pos = torch.where(wrap, 0, pos)
             sels.append(order.gather(1, pos.unsqueeze(1) + span))
             pos = pos + self.bs
-        return torch.stack(sels, dim=1), order, pos
+        return torch.stack(sels, dim=1), SamplerState(order, pos,
+                                                      epoch + wraps)
+
+
+def _take(state: SamplerState, rows: torch.Tensor) -> SamplerState:
+    return SamplerState(*(t.index_select(0, rows) for t in state))

@@ -116,6 +116,23 @@ def make_local_phase(apply_loss: Callable, unflatten: Callable, lr: float, *,
     return phase
 
 
+def make_client_phase(apply_loss: Callable, unflatten: Callable, lr: float,
+                      *, report_r: int | None = None,
+                      report_impl: str = "sort") -> Callable:
+    """One client's local phase (the async service's landing): the batched
+    phase of :func:`make_local_phase` on a one-row client axis. Returns
+    phase(params (1, d), opt (rows (1, ...)), state, bx (H, B, ...), by
+    (H, B)) -> (params (1, d), opt, state, g (1, d), report (1, r) | None,
+    loss (1,)), each client's arithmetic as a row of the batched phase."""
+    batched = make_local_phase(apply_loss, unflatten, lr, report_r=report_r,
+                               report_impl=report_impl)
+
+    def phase(params, opt, state, bx, by):
+        return batched(params, opt, state, bx.unsqueeze(0), by.unsqueeze(0))
+
+    return phase
+
+
 def stack_clients(trees: list):
     """Trees of equal structure -> one tree whose leaves are stacked over
     a new leading client axis."""

@@ -9,8 +9,10 @@ feedback, the participation plane (``fl.schedule``: full, uniform m of
 N, AoI-balanced, deadline), the compute plane (masked or gathered), and
 both drivers: ``run`` (a round a step) and ``run_scanned`` (chunks of
 rounds, each round on the card one replay of a CUDA graph of the round
-body), and checkpoint/resume of the whole round state (``save_state``,
-``load_state``, ``checkpointer=`` of either driver).
+body), checkpoint/resume of the whole round state (``save_state``,
+``load_state``, ``checkpointer=`` of either driver), and fault injection
+(``faults=``, a ``fl.faults.FaultModel``, with the PS's validation
+gate).
 
 One rAge-k round, all on the engine's device:
 
@@ -42,6 +44,15 @@ scatters the results back, so a gathered round equals the masked one
 (``'auto'`` gathers exactly when m < N). Under full participation every
 mask is skipped: the round is the full-participation program.
 
+Under ``faults=`` a crashed client sits the round out before the compute
+plane (its state and data stream held); after the local phase the wire
+faults corrupt or drop updates, and the validation gate (``quarantine``:
+finite rows with ``|g| <= gate_bound``) keeps the rest out. ``act_ps``,
+the clients the PS hears from, then drives selection, the ages, the
+request rows, the aggregate, the ef residual and the AoI, while the
+clients that trained (``act``) drive the local plane, the log's members,
+the upload cost and ``n_active``.
+
 Every M rounds the host pulls the (N, d) request counts (hierarchical:
 drains the log ring into its own copy of them), runs DBSCAN and merges
 or resets the cluster ages (rAge-k only): inline under ``run``, on a
@@ -50,8 +61,6 @@ set of buffers that each round updates in place (a graph replays on the
 addresses it captured); the reference threads it through a pure jitted
 function instead.
 
-Options of the reference that this path does not take raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -78,19 +87,14 @@ from repro_torch.core.strategies import (age_select, make_strategy,
 from repro_torch.data.pipeline import DeviceShardStore
 from repro_torch.device import resolve, strict_fp32
 from repro_torch.fl import client as C
+from repro_torch.fl.graphs import GraphCache
 from repro_torch.fl.schedule import RoundPlan, SchedState, make_scheduler
 from repro_torch.fl.server import aggregate_sparse, aggregate_sparse_fused
-from repro_torch.kernels import build
 from repro_torch.models import paper_nets as P
 from repro_torch.optim.optimizers import adam, apply_updates, sgd
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
          "float16": torch.float16}
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                               f"queue 1, {item})")
 
 
 class DeviceAgeState(NamedTuple):
@@ -212,6 +216,11 @@ class FLResult:
     aoi_peak: list = field(default_factory=list)
     age_mean: list = field(default_factory=list)     # over live cluster rows
     age_peak: list = field(default_factory=list)
+    # updates quarantined by the validation gate, clients crashed by the
+    # fault model, wire-dropped updates (all 0 without faults)
+    n_quarantined: list = field(default_factory=list)
+    n_crashed: list = field(default_factory=list)
+    n_dropped: list = field(default_factory=list)
     wall_s: float = 0.0
 
     def summary(self) -> dict:
@@ -224,12 +233,16 @@ class FLResult:
             "mean_aoi": (float(np.mean(self.aoi_mean))
                          if self.aoi_mean else 0.0),
             "peak_coord_age": max(self.age_peak) if self.age_peak else 0.0,
+            "total_quarantined": int(sum(self.n_quarantined)),
+            "total_crashed": int(sum(self.n_crashed)),
+            "total_dropped": int(sum(self.n_dropped)),
             "wall_s": self.wall_s,
         }
 
 
 _RESULT_LISTS = ("rounds", "loss", "acc", "uplink_bytes", "n_active",
-                 "aoi_mean", "aoi_peak", "age_mean", "age_peak")
+                 "aoi_mean", "aoi_peak", "age_mean", "age_peak",
+                 "n_quarantined", "n_crashed", "n_dropped")
 
 
 def _result_to_json(res: FLResult) -> dict:
@@ -251,7 +264,8 @@ def _result_from_json(d: dict | None) -> FLResult:
     if not d:
         return res
     for key in _RESULT_LISTS:
-        setattr(res, key, list(d[key]))
+        # a meta written before the fault counters reads them as empty
+        setattr(res, key, list(d.get(key, [])))
     res.cluster_labels = [np.asarray(c, np.int64)
                           for c in d["cluster_labels"]]
     res.heatmaps = {int(t): np.asarray(h) for t, h in d["heatmaps"].items()}
@@ -433,9 +447,11 @@ def _recluster_host(freq: np.ndarray, cluster_age: np.ndarray,
 def _write(dst, src):
     """Copy a tree of new tensors (tensors, tuples, NamedTuples, dicts) into
     the buffers of the same tree, in place: the engine's state keeps its
-    addresses, which a captured CUDA graph reads and writes."""
+    addresses, which a captured CUDA graph reads and writes. A buffer
+    handed back unchanged is not copied onto itself."""
     if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
+        if src is not dst:
+            dst.copy_(src)
     elif isinstance(dst, dict):
         for key in dst:
             _write(dst[key], src[key])
@@ -462,7 +478,11 @@ class FederatedEngine:
     client starts from both. ``ef`` keeps an (N, d) error-feedback
     residual per client; ``global_opt`` is the PS's optimizer ('adam' or
     'sgd'); ``compute`` the compute plane ('auto', 'gathered' or
-    'masked'); ``hp.schedule`` the participation plane.
+    'masked'); ``hp.schedule`` the participation plane. ``faults`` (a
+    ``fl.faults.FaultModel`` over the same N clients) injects crashes and
+    wire faults, keyed by ``seed + 77`` and the round; ``quarantine``
+    turns the PS's validation gate on (finite rows, ``|g| <=
+    gate_bound``).
 
     Two drivers run the same round body on the same state: :meth:`run`
     steps eagerly and pulls every round's metrics; :meth:`run_scanned`
@@ -476,7 +496,8 @@ class FederatedEngine:
                  hp: RAgeKConfig, *, seed: int = 0, device=None,
                  params=None, state=None, ef: bool = False,
                  global_opt: str = "adam", selection: str = "segmented",
-                 compute: str = "auto", faults=None):
+                 compute: str = "auto", faults=None,
+                 quarantine: bool = True, gate_bound: float = 1e4):
         if selection not in ("scan", "segmented"):
             raise ValueError(f"selection must be 'scan' or 'segmented', "
                              f"got {selection!r}")
@@ -486,8 +507,9 @@ class FederatedEngine:
         if global_opt not in ("adam", "sgd"):
             raise ValueError(f"global_opt must be 'adam' or 'sgd', got "
                              f"{global_opt!r}")
-        if faults is not None:
-            raise _todo("faults", "item 13: resilience")
+        if faults is not None and faults.n != len(shards):
+            raise ValueError(f"FaultModel.n={faults.n} != {len(shards)} "
+                             f"clients")
         self.device = dev = resolve(device)
         self.hp = hp
         self.kind = kind
@@ -523,7 +545,15 @@ class FederatedEngine:
         self._scheduler = make_scheduler(
             hp.schedule, n, participation_m=hp.participation_m,
             deadline_s=hp.deadline_s, seed=seed + 41, device=dev)
-        self._full = self._scheduler.name == "full"
+        # the fault model (None when it can inject nothing: the round is
+        # then the unfaulted one) with its key, and the validation gate
+        self._faults = faults if faults is not None and faults.any else None
+        self._fault_key = seed + 77
+        self._quarantine = bool(quarantine)
+        self._gate_bound = float(gate_bound)
+        # every mask of the round is all-true: skip them all
+        self._full = (self._scheduler.name == "full"
+                      and self._faults is None)
         # compute plane: 'gathered' trains only the m_bound compacted
         # active rows; 'auto' gathers exactly when that is a real cut
         if compute == "auto":
@@ -568,6 +598,8 @@ class FederatedEngine:
                        if ef else None)
         self.sched = SchedState.create(n, seed + 23, dev)
         self.round_idx = 0
+        # the fault counts of an unfaulted round
+        self._no_faults = torch.zeros(3, dtype=torch.int64, device=dev)
 
         self._store = DeviceShardStore(shards, hp.batch_size,
                                        seed=seed + 17, device=dev)
@@ -590,12 +622,10 @@ class FederatedEngine:
         self.device_s = 0.0
 
         # CUDA graphs of the round body, one per packing bound (the
-        # reference's jit cache): key -> (graph, launch tally, outputs);
-        # all in one memory pool, since they replay one at a time
-        self._graphs: dict = {}
-        self._pool = None
-        self._capture_stream = None
-        self.capture_s = 0.0             # host wall of captures
+        # reference's jit cache), with the rTop-k/random-k generator
+        # registered (the sampler, the plans and the faults hash device
+        # counters)
+        self._graphs = GraphCache(dev, (self._gen,))
 
         # the every-M recluster: inline under run(), on a worker thread
         # under run_scanned(), joined before anything reads the labels.
@@ -628,14 +658,17 @@ class FederatedEngine:
         order = order[:self._scheduler.m_bound]
         return torch.where(active.index_select(0, order), order, self.n)
 
-    def _select(self, G: torch.Tensor, cands, plan: RoundPlan, act_idx):
+    def _select(self, G: torch.Tensor, cands, act_ps: torch.Tensor,
+                act_idx, faulted: bool = False):
         """Step 4 for the engine's method: (idx (N, k) int32, or None for
         dense; the SegmentedSelection of rage_k's segmented plane, or
         None). ``G`` holds the trained rows: all N (masked), or the
         ``act_idx`` slots (gathered; ``cands`` is in client layout either
-        way). Updates the age state in place."""
+        way). ``act_ps`` ((N,) bool) are the clients the PS hears from;
+        ``faulted``: some trained clients are not among them. Updates the
+        age state in place."""
         hp, n, d = self.hp, self.n, self.d
-        act = None if self._full else plan.active
+        act = None if self._full else act_ps
         rows = None if act_idx is None else act_idx.clamp(max=n - 1)
 
         def to_clients(idx_rows):
@@ -674,6 +707,10 @@ class FederatedEngine:
                     G, C.take_rows((ca0, cost0), rows))
                 ca = C.put_rows(ca0 + 1, act_idx, ca_c)
                 cost = C.put_rows(cost0, act_idx, cost_c)
+                if faulted:
+                    # quarantined and dropped rows: no reset, no cost
+                    ca = torch.where(act.unsqueeze(1), ca, ca0 + 1)
+                    cost = torch.where(act.unsqueeze(1), cost, cost0)
                 idx = to_clients(idx_c)
             _write((ca0, cost0), (ca, cost))
         elif hp.method == "dense":
@@ -690,9 +727,9 @@ class FederatedEngine:
             idx, _, _ = self._strategy.select_batch(G, ())
             if rows is not None:
                 idx = to_clients(idx)
-        # clients outside the round request nothing: sentinel-d rows, set
-        # in this one place so that no method can forget them
-        return torch.where(plan.active.unsqueeze(1), idx, d), seg
+        # clients the PS does not hear from request nothing: sentinel-d
+        # rows, set in this one place so that no method can forget them
+        return torch.where(act_ps.unsqueeze(1), idx, d), seg
 
     def _log_requests(self, idx: torch.Tensor, active: torch.Tensor,
                       act_idx):
@@ -716,17 +753,19 @@ class FederatedEngine:
         age.log_mem.index_copy_(0, slot, mem.to(torch.int32).unsqueeze(0))
         age.log_ptr.add_(1)
 
-    def _upload(self, G: torch.Tensor, idx, plan: RoundPlan, act_idx):
+    def _upload(self, G: torch.Tensor, idx, plan: RoundPlan, act_idx,
+                ok: torch.Tensor):
         """What each trained row uploads, in wire form, late arrivals
         weighted: (vals (N, k) in client layout, or for dense the (N, d)
         sum's rows; sent (rows, d), each row's upload densely, for the
-        error-feedback residual, or None without ef)."""
+        error-feedback residual, or None without ef). ``ok`` (a bool per
+        row of G) marks the rows whose upload lands: heard from by the
+        PS, not a padded slot."""
         n, d = self.n, self.d
         gathered = act_idx is not None
         rows = act_idx.clamp(max=n - 1) if gathered else None
         if not self._full:
-            # per row of G: taking part (not a padded slot), stale, weight
-            ok = act_idx < n if gathered else plan.active
+            # per row of G: stale, weight
             stale, weight = plan.staleness > 0, plan.weight
             if gathered:
                 stale = stale.index_select(0, rows)
@@ -763,20 +802,67 @@ class FederatedEngine:
                 1, idx_rows.to(torch.int64), vals_r)[:, :d]
         return vals, sent
 
+    def _crash(self, plan: RoundPlan):
+        """The fault model's draws for this round (from the device round
+        counter): ``plan`` with the crashed clients taken out of its
+        active mask, and the wire faults (nan, inf, byz, drop masks and the
+        crashed count) that act after the local phase."""
+        crashed, nan, inf, byz, drop = self._faults.round_masks(
+            self._fault_key, self.sched.rnd)
+        n_crashed = (plan.active & crashed).sum()
+        return (plan._replace(active=plan.active & ~crashed),
+                (nan, inf, byz, drop, n_crashed))
+
+    def _gate(self, G: torch.Tensor, act: torch.Tensor, act_idx, wire):
+        """The wire faults and the validation gate on the trained rows G
+        (all N, or the ``act_idx`` slots): (G as the PS receives it,
+        act_ps, the clients it hears from, and the counts [quarantined,
+        crashed, dropped])."""
+        nan, inf, byz, drop, n_crashed = wire
+        zero = n_crashed.new_zeros(())
+        if not self._faults.any_wire:
+            return G, act, torch.stack([zero, n_crashed, zero])
+        rows = None if act_idx is None else act_idx.clamp(max=self.n - 1)
+
+        def at_rows(m):
+            return m if rows is None else m.index_select(0, rows)
+        G = self._faults.corrupt(G, at_rows(nan), at_rows(inf), at_rows(byz))
+        n_drop = (act & drop).sum()
+        act_ps = act & ~drop
+        n_quar = zero
+        if self._quarantine:
+            # finite everywhere and within the magnitude band: NaN and inf
+            # rows fail the first, Byzantine-scaled rows the second
+            row_ok = (torch.isfinite(G).all(dim=1)
+                      & (G.abs().amax(dim=1) <= self._gate_bound))
+            if rows is not None:
+                row_ok = C.put_rows(torch.zeros(self.n, dtype=torch.bool,
+                                                device=self.device),
+                                    act_idx, row_ok)
+            n_quar = (act_ps & ~row_ok).sum()
+            act_ps = act_ps & row_ok
+        return G, act_ps, torch.stack([n_quar, n_crashed, n_drop])
+
     def _round_impl(self, bx: torch.Tensor, by: torch.Tensor,
-                    plan: RoundPlan | None = None, act_idx=None) -> dict:
+                    plan: RoundPlan | None = None, act_idx=None,
+                    wire=None) -> dict:
         """One global round from the trained clients' batches (bx (rows,
         H, B, ...), by (rows, H, B): all N clients under masked compute,
         the ``act_idx`` slots under gathered). ``plan`` is the round's
         RoundPlan (None: the scheduler's); ``act_idx`` the compacted
-        active ids (None: from the plan). Updates the engine state in
-        place and returns the round's device tensors: losses (N,; NaN
-        outside the round), the last-step gradients G of the trained
-        rows, idx (N, k) (None for dense), the aggregated gradient g_sum
-        (d,), and the participation and age scalars."""
+        active ids (None: from the plan). Under faults, ``wire`` is what
+        :meth:`_crash` returned with the crashed clients already out of
+        ``plan``; None draws it here. Updates the engine state in place
+        and returns the round's device tensors: losses (N,; NaN outside
+        the round), the last-step gradients G of the trained rows (as the
+        PS receives them), idx (N, k) (None for dense), the aggregated
+        gradient g_sum (d,), the participation and age scalars, and
+        ``faults``, the counts [quarantined, crashed, dropped]."""
         hp, n, d = self.hp, self.n, self.d
         if plan is None:
             plan = self._scheduler.plan(self.sched)
+        if self._faults is not None and wire is None:
+            plan, wire = self._crash(plan)
         gathered = self._compute == "gathered"
         if gathered and act_idx is None:
             act_idx = self._compact(plan.active)
@@ -810,8 +896,22 @@ class FederatedEngine:
                     losses = torch.where(act, losses, float("nan"))
             _write((self.opt_s, self.state_s), (opt_s, state_s))
 
+        # the wire faults and the gate: act_ps, who the PS hears from
+        if wire is None:
+            act_ps, counts = act, self._no_faults
+        else:
+            with record_function("gate"):
+                G, act_ps, counts = self._gate(G, act, act_idx, wire)
+        faulted = act_ps is not act
+        # per row of G: its upload lands (heard from, not a padded slot)
+        if gathered:
+            ok = act_idx < n
+            if faulted:
+                ok = ok & act_ps.index_select(0, act_idx.clamp(max=n - 1))
+        else:
+            ok = act_ps
         with record_function("select"):
-            idx, seg = self._select(G, cands, plan, act_idx)
+            idx, seg = self._select(G, cands, act_ps, act_idx, faulted)
             if self.age.log_ptr is not None:
                 self._log_requests(idx, act, act_idx)
             if self.age.upload_cost is not None:
@@ -819,17 +919,17 @@ class FederatedEngine:
                 self.age.upload_cost.add_(
                     act.to(torch.int32) * (d if idx is None else hp.k))
         with record_function("aggregate"):
-            vals, sent = self._upload(G, idx, plan, act_idx)
+            vals, sent = self._upload(G, idx, plan, act_idx, ok)
             if idx is None:
                 g_sum = vals.sum(0)
             elif seg is not None:
                 # the segmented layout feeds aggregation directly: padded
-                # member slots and unpacked inactive clients carry the
-                # sentinel index d, which the kernel drops
-                ok = (seg.members < n).unsqueeze(-1)
+                # member slots and unpacked clients carry the sentinel
+                # index d, which the kernel drops
+                in_seg = (seg.members < n).unsqueeze(-1)
                 seg_vals = torch.where(
-                    ok, vals[seg.members.clamp(max=n - 1).to(torch.int64)],
-                    0.0)
+                    in_seg,
+                    vals[seg.members.clamp(max=n - 1).to(torch.int64)], 0.0)
                 g_sum, _ = aggregate_sparse_fused(
                     seg.idx, seg_vals, torch.zeros(d, dtype=torch.int32,
                                                    device=self.device))
@@ -837,13 +937,16 @@ class FederatedEngine:
                 g_sum = aggregate_sparse(idx, vals, d)
             if self.ef_mem is not None:
                 # what a client did not send is its next residual
-                # (optim.error_feedback.ef_update); clients outside the
-                # round hold theirs
+                # (optim.error_feedback.ef_update); clients the PS does not
+                # hear from hold theirs (a corrupted row must not poison it)
                 ef_rows = G - sent
                 if gathered:
+                    if faulted:
+                        ef_rows = C.where_rows(ok, ef_rows, C.take_rows(
+                            self.ef_mem, act_idx.clamp(max=n - 1)))
                     ef_rows = C.put_rows(self.ef_mem, act_idx, ef_rows)
                 elif not self._full:
-                    ef_rows = C.where_rows(act, ef_rows, self.ef_mem)
+                    ef_rows = C.where_rows(act_ps, ef_rows, self.ef_mem)
                 _write(self.ef_mem, ef_rows)
         with record_function("global_update"):
             # params_s views g_params, so the clients see the new params
@@ -851,7 +954,7 @@ class FederatedEngine:
                    apply_global(self._g_opt, g_sum, self.g_params,
                                 self.g_opt_state))
 
-        aoi = torch.where(act, 0, self.sched.aoi + 1)
+        aoi = torch.where(act_ps, 0, self.sched.aoi + 1)
         _write(self.sched, self.sched._replace(rnd=self.sched.rnd + 1,
                                                aoi=aoi))
         live = torch.zeros(self.age.cluster_age.shape[0], dtype=torch.bool,
@@ -869,15 +972,20 @@ class FederatedEngine:
             "age_mean": (ca_live.to(torch.float32).sum()
                          / (live.sum().to(torch.float32) * d)),
             "age_peak": ca_live.max(),
+            "faults": counts,
         }
 
     def _round(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The round body both drivers run (and a graph captures): the
-        plan, the draw, :meth:`_round_impl`, and the metrics the host
-        reads, packed into two flat device vectors: float32 [losses (N),
-        aoi_mean, age_mean] and int64 [n_active, aoi_peak, age_peak, idx
-        (N * k) (none for dense)]."""
+        plan (crashed clients out of it), the draw, :meth:`_round_impl`,
+        and the metrics the host reads, packed into two flat device
+        vectors: float32 [losses (N), aoi_mean, age_mean] and int64
+        [n_active, aoi_peak, age_peak, n_quarantined, n_crashed,
+        n_dropped, idx (N * k) (none for dense)]."""
         plan = self._scheduler.plan(self.sched)
+        wire = None
+        if self._faults is not None:
+            plan, wire = self._crash(plan)
         act_idx = (self._compact(plan.active)
                    if self._compute == "gathered" else None)
         with record_function("draw"):
@@ -891,13 +999,14 @@ class FederatedEngine:
                     # clients outside the round leave their stream as is
                     samp = C.where_rows(plan.active, samp, self.samp)
             _write(self.samp, samp)
-        m = self._round_impl(bx, by, plan, act_idx)
+        m = self._round_impl(bx, by, plan, act_idx, wire)
         with record_function("metrics"):
             f = torch.cat([m["losses"].to(torch.float32),
                            torch.stack([m["aoi_mean"], m["age_mean"]])])
             ints = [torch.stack([m["n_active"].to(torch.int64),
                                  m["aoi_peak"].to(torch.int64),
-                                 m["age_peak"].to(torch.int64)])]
+                                 m["age_peak"].to(torch.int64)]),
+                    m["faults"].to(torch.int64)]
             if m["idx"] is not None:
                 ints.append(m["idx"].reshape(-1).to(torch.int64))
             return f, torch.cat(ints)
@@ -906,13 +1015,16 @@ class FederatedEngine:
         """One round's host values from its two metric vectors."""
         n = self.n
         return {"losses": f[:n],
-                "idx": (i[3:].reshape(n, -1).astype(np.int32)
+                "idx": (i[6:].reshape(n, -1).astype(np.int32)
                         if self.hp.method != "dense" else None),
                 "n_active": int(i[0]),
                 "aoi_mean": float(f[n]),
                 "aoi_peak": int(i[1]),
                 "age_mean": float(f[n + 1]),
-                "age_peak": int(i[2])}
+                "age_peak": int(i[2]),
+                "n_quarantined": int(i[3]),
+                "n_crashed": int(i[4]),
+                "n_dropped": int(i[5])}
 
     def step(self) -> dict:
         """Advance one global round, eagerly. Returns host values: losses
@@ -951,66 +1063,14 @@ class FederatedEngine:
                     min(self._max_seg, self._scheduler.m_bound))
         return (rows,)
 
-    def _drop_graphs(self):
-        """Forget every captured graph: they read the addresses of buffers
-        about to be replaced. Their memory pool goes with the last of
-        them, so the next chunk captures anew into a new one."""
-        if self._graphs and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._graphs.clear()
-        self._pool = None
-
-    def _capture(self, key):
-        """Run one round eagerly on the capture stream (a real round, which
-        warms up the libraries' handles, workspaces and algorithms), then
-        capture the round body as a CUDA graph for ``key``, with both
-        device generators registered so that each replay draws anew, and
-        the kernels' launches counted into the graph's tally. Returns the
-        eager round's metric vectors. A failed capture raises."""
-        t0 = time.perf_counter()
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        stream = self._capture_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            out = self._round()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        for gen in (self._store.gen, self._gen):
-            graph.register_generator_state(gen)
-        with build.capturing() as tally, torch.cuda.graph(
-                graph, pool=self._pool, stream=stream):
-            outs = self._round()
-        self._graphs[key] = (graph, dict(tally), outs)
-        self.capture_s += time.perf_counter() - t0
-        return out
-
     def _chunk(self, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """``rounds`` rounds with no host stop between them. On the card
-        each is one replay of the graph for the current packing bounds
-        (captured at its first use); on the CPU the same body runs
-        eagerly. Returns the rounds' metric vectors stacked on the device,
-        (rounds, F) float32 and (rounds, I) int64."""
+        """``rounds`` rounds with no host stop between them: on the card
+        each one replay of the graph for the current packing bounds
+        (captured at its first use), on the CPU the round body. Returns
+        the rounds' metric vectors stacked on the device, (rounds, F)
+        float32 and (rounds, I) int64."""
         self._recluster_join()
-        key = self._graph_key()
-        stacks = None
-        for j in range(rounds):
-            if self.device.type != "cuda":
-                f, i = self._round()
-            elif key not in self._graphs:
-                f, i = self._capture(key)
-            else:
-                graph, tally, (f, i) = self._graphs[key]
-                graph.replay()
-                build.replayed(tally)
-            if stacks is None:
-                stacks = (f.new_empty((rounds, f.numel())),
-                          i.new_empty((rounds, i.numel())))
-            stacks[0][j].copy_(f)
-            stacks[1][j].copy_(i)
-        return stacks
+        return self._graphs.chunk(self._round, self._graph_key(), rounds)
 
     def _next_stop(self, end: int, eval_every: int, heatmap_at,
                    ckpt_every: int = 0) -> int:
@@ -1194,7 +1254,7 @@ class FederatedEngine:
         if rows.shape == self.age.cluster_age.shape:
             self.age.cluster_age.copy_(rows)
             return
-        self._drop_graphs()
+        self._graphs.drop()
         self.age = self.age._replace(
             cluster_age=rows.to(self.device, torch.int32).contiguous())
 
@@ -1229,8 +1289,9 @@ class FederatedEngine:
         """The whole round state as one tree: params, the global and
         per-client optimizer state, the model state, the age state in
         either layout (the log ring and ``log_ptr`` included), the ef
-        memory, the sampler's cursors, ``SchedState`` and both device
-        generators' states (after any replays), plus the hierarchical
+        memory, the sampler's cursors and counters, ``SchedState`` and
+        the rTop-k/random-k generator's state (after any replays), plus
+        the hierarchical
         layout's host counts. Joins any recluster in flight and drains
         the log first (a watermark move: the run's math is untouched)."""
         self._recluster_join()
@@ -1238,8 +1299,7 @@ class FederatedEngine:
             "g_params": self.g_params, "g_opt_state": self.g_opt_state,
             "opt_s": self.opt_s, "state_s": self.state_s, "age": self.age,
             "ef_mem": self.ef_mem, "samp": self.samp, "sched": self.sched,
-            "gen": {"store": self._store.gen.get_state(),
-                    "select": self._gen.get_state()}}}
+            "gen": {"select": self._gen.get_state()}}}
         if self._freq_host is not None:
             self._drain_freq_log()
             tree["freq_host"] = self._freq_host
@@ -1271,7 +1331,7 @@ class FederatedEngine:
         (empty if none) for the driver to append to."""
         path = getattr(source, "path", source)
         tree, meta = load_checkpoint(path, self.state_tree(), step=step)
-        self._drop_graphs()
+        self._graphs.drop()
         carry = tree["carry"]
         age = carry["age"]
         self._set_cluster_age(age.cluster_age)
@@ -1281,7 +1341,6 @@ class FederatedEngine:
                     "ef_mem", "samp", "sched"):
             if carry[key] is not None:
                 _write(getattr(self, key), carry[key])
-        self._store.gen.set_state(carry["gen"]["store"])
         self._gen.set_state(carry["gen"]["select"])
         if "freq_host" in tree:
             self._freq_host = np.array(tree["freq_host"])
@@ -1346,7 +1405,7 @@ class FederatedEngine:
         participation and age metrics."""
         res.requested.append(row["idx"])
         for key in ("n_active", "aoi_mean", "aoi_peak", "age_mean",
-                    "age_peak"):
+                    "age_peak", "n_quarantined", "n_crashed", "n_dropped"):
             getattr(res, key).append(row[key])
 
     def _record(self, res: FLResult, losses, *, end: int, eval_every: int,

@@ -263,12 +263,19 @@ def test_no_silent_cpu(fig3_data, monkeypatch):
         FederatedEngine("mlp", shards, test, RAgeKConfig(**FIG3))
 
 
-@pytest.mark.parametrize("kw,hp,item", [
-    ({"faults": object()}, {"age_layout": "hierarchical"}, "item 13"),
-    ({"faults": object()}, {}, "item 13")])
-def test_unported_options_raise(fig3_data, kw, hp, item):
+@pytest.mark.parametrize("hp", [{"age_layout": "hierarchical"}, {}])
+def test_unported_options_raise(fig3_data, hp):
+    """The engine's last unported option, ``faults=``, is ported (item
+    13): a fault model over the engine's N runs a round in either layout
+    with no NotImplementedError, and one over another N raises."""
+    from repro_torch.fl.faults import FaultModel
     shards, test = fig3_data
-    kw = {"kind": "mlp", **kw}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        FederatedEngine(kw.pop("kind"), shards, test,
-                        RAgeKConfig(**{**FIG3, **hp}), device="cpu", **kw)
+    cfg = RAgeKConfig(**{**FIG3, **hp, "H": 1})
+    eng = FederatedEngine("mlp", shards, test, cfg, device="cpu",
+                          faults=FaultModel(10, dark=(3,), device="cpu"))
+    out = eng.step()
+    assert (out["n_crashed"], out["n_active"]) == (1, 9)
+    assert (out["idx"][3] == eng.d).all()
+    with pytest.raises(ValueError, match="FaultModel"):
+        FederatedEngine("mlp", shards, test, cfg, device="cpu",
+                        faults=FaultModel(4, device="cpu"))

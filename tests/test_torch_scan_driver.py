@@ -274,16 +274,20 @@ class _Recorder:
 
     def __init__(self):
         self.steps = []
+        self.crashed = []
 
     def save(self, step, tree, extra=None):
         self.steps.append((step, extra["round_idx"]))
+        self.crashed.append(extra["result"]["n_crashed"])
 
 
 @pytest.mark.parametrize("driver", ["run", "run_scanned"])
-def test_checkpointer_is_not_ported(mnist_setup, driver):
-    """The checkpoint half of item 13 is ported (``checkpointer=`` saves
-    every ``ckpt_every`` rounds; ``ckpt_every`` alone saves nothing and
-    changes no result); its fault half is not: ``faults=`` raises."""
+def test_checkpointer_saves_at_its_cadence_under_faults(mnist_setup,
+                                                        driver):
+    """``checkpointer=`` saves every ``ckpt_every`` rounds; ``ckpt_every``
+    alone saves nothing and changes no result; under ``faults=`` the
+    saves come at the same rounds and carry the fault counters so far."""
+    from repro_torch.fl.faults import FaultModel
     eng = _engine(mnist_setup)
     rec = _Recorder()
     res = getattr(eng, driver)(5, eval_every=EVAL_EVERY, checkpointer=rec,
@@ -292,10 +296,16 @@ def test_checkpointer_is_not_ported(mnist_setup, driver):
     other = _engine(mnist_setup)
     assert getattr(other, driver)(5, eval_every=EVAL_EVERY,
                                   ckpt_every=2).loss == res.loss
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _engine(mnist_setup, faults=object())
-    eng.close()
-    other.close()
+    faulted = _engine(mnist_setup, faults=FaultModel(
+        10, p_crash=0.3, p_nan=0.3, seed=1, device="cpu"))
+    rec = _Recorder()
+    res = getattr(faulted, driver)(5, eval_every=EVAL_EVERY,
+                                   checkpointer=rec, ckpt_every=2)
+    assert rec.steps == [(2, 2), (4, 4)]
+    assert rec.crashed == [res.n_crashed[:2], res.n_crashed[:4]]
+    assert sum(res.n_crashed) > 0 and sum(res.n_quarantined) > 0
+    for e in (eng, other, faulted):
+        e.close()
 
 
 def test_deterministic_scope(monkeypatch):
@@ -441,3 +451,68 @@ def test_card_partial_run_scanned_equals_run(cuda, mnist_setup, hp, kw):
     if kw.get("ef"):
         assert torch.equal(ea.ef_mem, eb.ef_mem)
     eb.close()
+
+
+@pytest.mark.cuda
+def test_card_faulted_run_scanned_equals_run(cuda, mnist_setup):
+    """Faulted rounds replayed as graphs on the card equal the stepped
+    rounds bitwise, counters included, with the unfaulted round's
+    kernel launches."""
+    from repro_torch.fl.faults import FaultModel
+    shards, test = mnist_setup
+    hp = RAgeKConfig(**HP, eps=0.8)
+    out = []
+    for driver in ("run", "run_scanned"):
+        eng = FederatedEngine("mlp", shards, test, hp, seed=3, device=cuda,
+                              faults=FaultModel(10, p_nan=0.2, p_crash=0.1,
+                                                p_drop=0.1, seed=9,
+                                                device=cuda))
+        build.reset_launches()
+        res = getattr(eng, driver)(ROUNDS, eval_every=EVAL_EVERY)
+        out.append((eng, res, dict(build.LAUNCHES)))
+    (ea, ra, la), (eb, rb, lb) = out
+    assert eb._graphs and la == lb and lb["segmented_age_topk"] == ROUNDS
+    _assert_same(ea, ra, eb, rb)
+    assert ra.n_quarantined == rb.n_quarantined and sum(ra.n_quarantined)
+    assert ra.n_crashed == rb.n_crashed and ra.n_dropped == rb.n_dropped
+    eb.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solicit", ["report", "dispatch"])
+def test_card_service_replays_equal_eager_events(cuda, mnist_setup, solicit):
+    """On the card each service event is a CUDA graph replay, bitwise the
+    eager event; a report-mode event launches the report's two kernels, a
+    dispatch-mode event none."""
+    from repro_torch.fl.latency import LatencyModel
+    from repro_torch.fl.service import AsyncService
+    shards, test = mnist_setup
+    hp = RAgeKConfig(**HP, buffer_k=4, version_window=4)
+
+    def make():
+        return AsyncService("mlp", shards, test, hp, seed=0, device=cuda,
+                            solicit=solicit,
+                            latency=LatencyModel(10, hetero=1.0, device=cuda))
+    a, b = make(), make()
+    build.reset_launches()
+    ma = a._advance(12)
+    assert build.LAUNCHES["threshold_topk_batch"] == (
+        12 if solicit == "report" else 0)
+    mb = b._advance(12, eager=True)
+    assert a._graphs and not b._graphs
+    for key in ma:
+        np.testing.assert_array_equal(ma[key], mb[key])
+    for name in a.state._fields:
+        xs, ys = getattr(a.state, name), getattr(b.state, name)
+        for x, y in zip(*(_tensors(t) for t in (xs, ys))):
+            assert torch.equal(x, y), name
+
+
+def _tensors(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    return [t for x in tree for t in _tensors(x)]
