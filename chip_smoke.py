@@ -130,6 +130,17 @@ the last line:
 6p. fig5 async (after 6m): Network-2's service, 2 aggregations at K 6,
    V 2, H 10: finite losses, the report's launches, ms an event; two
    eager landings' candidates == the plain report on their rows;
+6q. cli (after 6p): ``python -m repro_torch.launch.fl_train`` through
+   ``main(argv)``: fig3 at ``--paper-hparams`` for 20 rounds by the scan
+   and the step driver (equal ``--out``, the label pairs, each round's
+   four launches), the paper's 200 rounds of rAge-k and rTop-k (wall
+   and final accuracy), the reference CI's smokes at ``--n-train 2000``
+   and 5 rounds (uniform m 8, hierarchical == dense, ``--aggregate
+   jnp`` == ``pallas``, faults, the async service at K 4), kill and
+   resume in subprocesses (rc 17, a byte-equal ``--out``), fig5 at
+   ``--paper-hparams`` for 2 rounds (each round's launches), the three
+   examples at their defaults, ``apply_method`` and ``rage_k`` on a
+   fig3 gradient row and ``GlobalServer`` card == CPU;
 7. LM parity: internlm2-1.8b at full width with 2 layers in float32,
    12 decode steps from the same parameters and tokens on the card and
    on the CPU (logits, greedy tokens and caches); then its smoke config
@@ -3844,6 +3855,336 @@ def phase_fig5_async(torch, shards, test):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6q: the paper's command line, its library surface and the examples
+# ---------------------------------------------------------------------------
+
+# fig3 at full width and depth through the CLI (benchmarks/fig3_mnist.py's
+# hyper-parameters: r 75, k 10, H 4, M 20, Adam lr 1e-4, batch 256 on
+# paper_mnist_split of 60,000), and the reference's CI smokes' flags
+CLI_FIG3 = ["--dataset", "mnist", "--paper-hparams"]
+CLI_CI = ["--dataset", "mnist", "--n-train", "2000"]
+CLI_SMOKE = [*CLI_CI, "--rounds", "5"]
+# the launches of a report-mode event of the async service
+PER_REPORT_EVENT = {"maghist_batch": 1, "threshold_topk_batch": 1}
+# the parameters GlobalServer is held to card == CPU with, as
+# tests/test_torch_model_optim.py holds the optimizers
+GS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def cli_run(torch, argv, out: str, rounds: int = 0, path=None) -> tuple:
+    """``fl_train.main(argv + --out out)`` in this process, its printing
+    kept: with ``path`` every launch count set to 0 just before and read
+    just after, which must be ``rounds`` times ``PER_ROUND[path]``.
+    Returns (the --out JSON, the launch counts, the printed lines, the
+    main's wall in s)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import build
+    from repro_torch.launch import fl_train
+
+    buf = io.StringIO()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fl_train.main([*argv, "--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if path is not None:
+        want = {k: rounds * PER_ROUND[path].get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"cli {' '.join(argv)}: launched "
+                                 f"{launches}, expected {want}")
+    with open(out) as f:
+        d = json.load(f)
+    return d, launches, buf.getvalue().splitlines(), wall
+
+
+def _summary_wall(lines) -> float:
+    """The driver's wall from the CLI's ``summary:`` line."""
+    import re
+    line = [x for x in lines if x.startswith("summary:")][-1]
+    return float(re.search(r"'wall_s': ([0-9.e+-]+)", line).group(1))
+
+
+def cli_kill_resume(scratch: str) -> str:
+    """The reference CI's resilience smoke through subprocesses of the
+    CLI on the card: the uninterrupted run and the one killed after the
+    round-4 checkpoint side by side (rc 17), then ``--resume``; the
+    resumed ``--out`` byte-equal to the uninterrupted one."""
+    import filecmp
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+
+    def start(name, *argv):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.fl_train", *CLI_CI,
+             "--rounds", "6", "--ckpt-every", "2", "--ckpt-dir",
+             os.path.join(scratch, f"ck_{name}"), "--out",
+             os.path.join(scratch, f"{name}.json"), *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    procs = [start("ref"), start("run", "--kill-at-round", "4")]
+    outs = [p.communicate(timeout=300) for p in procs]
+    if procs[0].returncode != 0 or procs[1].returncode != 17:
+        raise AssertionError(f"kill and resume: rc {procs[0].returncode} "
+                             f"and {procs[1].returncode} (want 0, 17): "
+                             f"{outs[0][1][-2000:]} {outs[1][1][-2000:]}")
+    res = start("run", "--resume")
+    out, err = res.communicate(timeout=300)
+    if res.returncode != 0 or "resumed at round 4" not in out:
+        raise AssertionError(f"resume: rc {res.returncode}: {err[-2000:]}")
+    # the killed run wrote to run.json nothing; the resumed one did
+    if not filecmp.cmp(os.path.join(scratch, "ref.json"),
+                       os.path.join(scratch, "run.json"), shallow=False):
+        raise AssertionError("resumed --out differs from the "
+                             "uninterrupted run's")
+    return (f"rc 17 after the round-4 checkpoint, then --resume: --out "
+            f"byte-equal to the uninterrupted run's "
+            f"({time.perf_counter() - t0:.1f} s for the three processes)")
+
+
+def cli_functional(torch, dev):
+    """The library surface beneath the CLI on the card against the CPU:
+    ``apply_method(candidates='threshold')`` (the report's two kernels on
+    one vector) and ``rage_k`` over three rounds on a fig3 gradient row
+    (indices, ages, densified vector exact), and ``GlobalServer``'s three
+    Adam and three SGD steps on Network-1's parameters within
+    ``GS_TOL``."""
+    from repro_torch.configs.base import RAgeKConfig
+    from repro_torch.core import sparsify as S
+    from repro_torch.data.federated import paper_mnist_split
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.device import strict_fp32
+    from repro_torch.fl.engine import FederatedEngine
+    from repro_torch.fl.server import GlobalServer
+
+    (x, y), test = mnist_like(n_train=3000, n_test=500, seed=0)
+    eng = FederatedEngine("mlp", paper_mnist_split(x, y, seed=0), test,
+                          RAgeKConfig(**FIG3), seed=0)
+    bx, by, _ = eng._store.draw(eng._data, eng.samp, eng.hp.H)
+    with strict_fp32():
+        G = eng._local_phase(eng.params_s, eng.opt_s, eng.state_s, bx,
+                             by)[3]
+    g = G[0].contiguous()
+    r, k = FIG3["r"], FIG3["k"]
+    for method in ("rage_k", "top_k"):
+        ages = [torch.zeros(g.shape[0], dtype=torch.int32, device=d)
+                for d in (dev, "cpu")]
+        for t in range(3):
+            outs = [S.apply_method(method, gg, age=a, r=r, k=k,
+                                   candidates="threshold")
+                    for gg, a in ((g, ages[0]), (g.cpu(), ages[1]))]
+            (cs, ci, ca), (hs, hi, ha) = outs
+            if not (torch.equal(ci.cpu(), hi) and torch.equal(cs.cpu(), hs)
+                    and (ca is None or torch.equal(ca.cpu(), ha))):
+                raise AssertionError(f"apply_method {method} threshold: "
+                                     f"card != CPU at round {t}")
+            if ca is not None:
+                ages = [ca, ha]
+    age_c = torch.zeros(g.shape[0], dtype=torch.int32, device=dev)
+    age_h = age_c.cpu()
+    for t in range(3):
+        cs, ci, age_c = S.rage_k(g, age_c, r, k)
+        hs, hi, age_h = S.rage_k(g.cpu(), age_h, r, k)
+        if not (torch.equal(ci.cpu(), hi) and torch.equal(age_c.cpu(), age_h)
+                and torch.equal(cs.cpu(), hs)):
+            raise AssertionError(f"rage_k: card != CPU at round {t}")
+    errs = {}
+    for opt in ("adam", "sgd"):
+        params = eng.params
+        gc = GlobalServer({a: {b: t.clone() for b, t in v.items()}
+                           for a, v in params.items()}, opt=opt, lr=1e-4)
+        gh = GlobalServer({a: {b: t.cpu() for b, t in v.items()}
+                           for a, v in params.items()}, opt=opt, lr=1e-4)
+        err = 0.0
+        for j in range(3):
+            grad = eng._unflatten(G[j])
+            pc = gc.apply_gradient(grad)
+            ph = gh.apply_gradient({a: {b: t.cpu() for b, t in v.items()}
+                                    for a, v in grad.items()})
+            for a in pc:
+                for b in pc[a]:
+                    if pc[a][b].device != g.device:
+                        raise AssertionError("GlobalServer left the card")
+                    torch.testing.assert_close(pc[a][b].cpu(), ph[a][b],
+                                               **GS_TOL)
+                    err = max(err, float((pc[a][b].cpu() - ph[a][b])
+                                         .abs().max()))
+        errs[opt] = err
+    eng.close()
+    return (f"apply_method(candidates='threshold') for rage_k and top_k and "
+            f"rage_k, 3 rounds each on a fig3 gradient row (d "
+            f"{g.shape[0]:,}, r {r}, k {k}): card == CPU exactly; "
+            f"GlobalServer 3 steps card vs CPU max |diff| adam "
+            f"{errs['adam']:.2e}, sgd {errs['sgd']:.2e} (rtol 1e-5, atol "
+            f"1e-6)")
+
+
+def phase_cli(torch, dev, scratch: str) -> dict:
+    """6q: ``python -m repro_torch.launch.fl_train`` through ``main(argv)``
+    on the card. fig3 at the paper's hyper-parameters for 20 rounds by
+    the scan and the step driver (equal ``--out``, the label pairs at
+    20, each round's four launches); the paper's 200 rounds for rAge-k
+    and rTop-k (wall and final accuracy); the reference CI's smokes at
+    its flags (uniform m 8, hierarchical == dense, ``--aggregate jnp``
+    == ``pallas``, the fault gate, the async buffered PS); kill and
+    resume in subprocesses; fig5 at the paper's hyper-parameters for 2
+    rounds; the three examples at their defaults; and the functional
+    surface card == CPU. Returns the CLI runs' launch counts."""
+    import math
+    from repro_torch.examples import (clustered_cifar, federated_mnist,
+                                      quickstart)
+
+    t_phase = time.perf_counter()
+    os.makedirs(scratch, exist_ok=True)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def out(name):
+        return os.path.join(scratch, f"{name}.json")
+
+    # fig3, 20 rounds, both drivers
+    outs = {}
+    for driver in ("scan", "step"):
+        d, launches, lines, wall = cli_run(
+            torch, [*CLI_FIG3, "--rounds", "20", "--driver", driver],
+            out(f"fig3_{driver}"), 20, ("rage_k", "segmented"))
+        add(launches)
+        if d["clusters"] != PAIRS or not all(map(math.isfinite, d["loss"])):
+            raise AssertionError(f"cli fig3 {driver}: clusters "
+                                 f"{d['clusters']}, losses {d['loss']}")
+        outs[driver] = d
+        say(f"cli: fig3 --paper-hparams --rounds 20 --driver {driver}: "
+            f"clusters {d['clusters']}, acc {d['acc'][-1]:.4f}, wall "
+            f"{wall:.2f} s (driver {_summary_wall(lines):.2f} s); launches "
+            f"{launches}")
+    if outs["scan"] != outs["step"]:
+        bad = [k for k in outs["scan"] if outs["scan"][k] != outs["step"][k]]
+        raise AssertionError(f"cli fig3: scan and step --out differ in "
+                             f"{bad}")
+    say("cli: fig3 scan --out == step --out (losses, accuracies, uplink, "
+        "clusters, participation and age columns)")
+
+    # the paper's full fig3 run
+    for method in ("rage_k", "rtop_k"):
+        d, launches, lines, wall = cli_run(
+            torch, [*CLI_FIG3, "--rounds", "200", "--method", method],
+            out(f"fig3_200_{method}"), 200, (method, "segmented"))
+        add(launches)
+        if not all(map(math.isfinite, d["loss"])):
+            raise AssertionError(f"cli fig3 200 {method}: losses "
+                                 f"{d['loss']}")
+        say(f"cli: fig3 --paper-hparams --rounds 200 --method {method} on "
+            f"{torch.cuda.get_device_name(0)}: main {wall:.2f} s (driver "
+            f"{_summary_wall(lines):.2f} s, data and build included in "
+            f"main), final acc {d['acc'][-1]:.4f}, loss "
+            f"{d['loss'][-1]:.4f}, clusters {d['clusters']}, uplink "
+            f"{d['uplink'][-1]:,} B; launches {launches}")
+
+    # the reference CI's smokes at its flags
+    d, launches, _, _ = cli_run(
+        torch, [*CLI_SMOKE, "--schedule", "uniform", "--participation-m", "8"],
+        out("schedule"), 5, ("rage_k", "segmented"))
+    add(launches)
+    if d["n_active"] != [8] * 5 or max(d["aoi_peak"]) < 1:
+        raise AssertionError(f"cli schedule smoke: {d['n_active']}, "
+                             f"{d['aoi_peak']}")
+    hier, launches, _, _ = cli_run(
+        torch, [*CLI_SMOKE, "--age-layout", "hierarchical"], out("hier"), 5,
+        ("rage_k", "segmented"))
+    add(launches)
+    dense, launches, _, _ = cli_run(torch, CLI_SMOKE, out("dense"), 5,
+                                    ("rage_k", "segmented"))
+    add(launches)
+    if any(hier[k] != dense[k] for k in ("loss", "acc", "clusters",
+                                         "uplink")):
+        raise AssertionError("cli age-layout smoke: hierarchical != dense")
+    jnp_, launches, _, _ = cli_run(
+        torch, [*CLI_SMOKE, "--aggregate", "jnp"], out("jnp"), 5,
+        ("rage_k", "segmented"))
+    add(launches)
+    pallas, launches, _, _ = cli_run(
+        torch, [*CLI_SMOKE, "--aggregate", "pallas"], out("pallas"), 5,
+        ("rage_k", "segmented"))
+    add(launches)
+    if jnp_ != pallas:
+        raise AssertionError("cli --aggregate jnp --out != pallas --out")
+    d, launches, _, _ = cli_run(torch, [*CLI_SMOKE, "--faults", "nan:0.1"],
+                                out("faults"), 5, ("rage_k", "segmented"))
+    add(launches)
+    if sum(d["n_quarantined"]) == 0 or not all(map(math.isfinite,
+                                                   d["loss"])):
+        raise AssertionError(f"cli faults smoke: {d['n_quarantined']}, "
+                             f"{d['loss']}")
+    quarantined = sum(d["n_quarantined"])
+    d, launches, _, _ = cli_run(
+        torch, [*CLI_SMOKE, "--driver", "async", "--buffer-k", "4"],
+        out("async"))
+    add(launches)
+    hist = {int(k): v for k, v in d["staleness_hist"].items()}
+    want = {k: 5 * 4 * PER_REPORT_EVENT.get(k, 0) for k in launches}
+    if (d["aggregations"] != 5 or d["clock"] != sorted(d["clock"])
+            or sum(hist.values()) != 20 or max(hist) > d["version_window"] - 1
+            or d["downlink"][-1] <= 0 or launches != want):
+        raise AssertionError(f"cli async smoke: {d}, launches {launches}")
+    say(f"cli: the CI smokes at --n-train 2000, 5 rounds: uniform m 8 "
+        f"n_active [8] x 5; hierarchical == dense; --aggregate jnp == "
+        f"pallas (--out equal; sparse_aggregate once a round each); faults "
+        f"nan:0.1 {quarantined} quarantined, finite; async K 4: 5 "
+        f"aggregations, staleness {hist}, downlink {d['downlink'][-1]} B, "
+        f"the report's two kernels an event")
+    say(f"cli: kill and resume: {cli_kill_resume(scratch)}")
+
+    # fig5 at the paper's hyper-parameters
+    d, launches, lines, wall = cli_run(
+        torch, ["--dataset", "cifar", "--paper-hparams", "--rounds", "2"],
+        out("fig5"), 2, ("rage_k", "segmented"))
+    add(launches)
+    if not all(map(math.isfinite, d["loss"])):
+        raise AssertionError(f"cli fig5: losses {d['loss']}")
+    say(f"cli: --dataset cifar --paper-hparams --rounds 2 (H 100): losses "
+        f"{d['loss']}, main {wall:.2f} s (driver {_summary_wall(lines):.2f}"
+        f" s); launches {launches}")
+
+    # the examples at their defaults
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        labels = quickstart.main()
+        t_q = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mn = federated_mnist.main()
+        t_m = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cc = clustered_cifar.main()
+        t_c = time.perf_counter() - t0
+    if labels.tolist() != [0, 0, 1, 1]:
+        raise AssertionError(f"quickstart: clusters {labels.tolist()}")
+    for res in (*mn.values(), cc):
+        if not all(map(math.isfinite, res.loss)):
+            raise AssertionError(f"examples: losses {res.loss}")
+    cc_labels = cc.cluster_labels[-1].tolist()
+    say(f"cli: examples: quickstart clusters {labels.tolist()} "
+        f"({t_q:.1f} s); federated_mnist 150 rounds: "
+        + ", ".join(f"{m} acc {r.acc[-1]:.4f} clusters "
+                    f"{r.cluster_labels[-1].tolist()}"
+                    for m, r in mn.items())
+        + f" ({t_m:.1f} s); clustered_cifar 24 rounds: clusters "
+        f"{cc_labels} (pairs (0,1), (2,3), (4,5) "
+        f"{'found' if cc_labels == [0, 0, 1, 1, 2, 2] else 'not found'}), "
+        f"acc {cc.acc[-1]:.4f} ({t_c:.1f} s)")
+    say(f"cli: {cli_functional(torch, dev)}")
+    say(f"cli: phase wall {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{total}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3919,8 +4260,9 @@ def main() -> int:
     fig5_hier = phase_fig5_hier(torch, shards, test)
     fig5_resume = phase_fig5_resume(torch, shards, test, scratch)
     fig5_async = phase_fig5_async(torch, shards, test)
-    shutil.rmtree(scratch, ignore_errors=True)
     del shards, test
+    cli = phase_cli(torch, dev, os.path.join(scratch, "cli"))
+    shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
     smoke = phase_smoke_serve(torch, dev)
@@ -3932,7 +4274,7 @@ def main() -> int:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
             faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
-            fig5_hier, fig5_resume, fig5_async, smoke, serve, long))
+            fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long))
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

@@ -1,14 +1,57 @@
-"""Wire byte accounting: the port's copy of ``bytes_per_index``,
-``value_bytes_of``, ``bytes_per_round``, ``downlink_bytes_per_round`` and
-``clustering_input_bytes`` from ``repro.core.compression``."""
+"""Compression-operator theory (paper §II-A) and wire byte accounting:
+the port's numpy copy of ``repro.core.compression``.
+
+A (possibly randomized) Comp_k satisfies
+    E ||g - Comp_k(g)||^2 <= (1 - gamma) ||g||^2,  gamma in (0, 1].
+rAge-k is such an operator with
+    gamma = k / (k + (r - k) * beta + (d - r)),
+where beta bounds |g|_(1) / |g|_(r) (largest over r-th largest
+magnitude), reducing to k/d at r = k. :func:`beta_of` and
+:func:`contraction` take numpy arrays or torch tensors on any device.
+"""
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 _WIRE_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
                "int8": 1, "uint8": 1}
+
+
+def _host(g) -> np.ndarray:
+    if isinstance(g, torch.Tensor):
+        return g.detach().cpu().numpy()
+    return np.asarray(g)
+
+
+def gamma_rage_k(k: int, r: int, d: int, beta: float) -> float:
+    assert 1 <= k <= r <= d and beta >= 1.0
+    return k / (k + (r - k) * beta + (d - r))
+
+
+def gamma_top_k(k: int, d: int) -> float:
+    return k / d
+
+
+def beta_of(g, r: int) -> float:
+    """Empirical beta: |g|_(1) / |g|_(r) (ratio of 1st to r-th magnitude)."""
+    mags = np.sort(np.abs(_host(g)))[::-1]
+    denom = mags[r - 1]
+    if denom == 0:
+        return np.inf
+    return float(mags[0] / denom)
+
+
+def contraction(g, g_sparse) -> float:
+    """||g - Comp(g)||^2 / ||g||^2 (must be <= 1 - gamma in expectation)."""
+    g = np.asarray(_host(g), np.float64)
+    gs = np.asarray(_host(g_sparse), np.float64)
+    n = float(np.sum(g * g))
+    if n == 0:
+        return 0.0
+    return float(np.sum((g - gs) ** 2) / n)
 
 
 def bytes_per_index(d: int) -> int:

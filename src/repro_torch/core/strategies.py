@@ -6,8 +6,11 @@ batch, written over the last axis so the batch is one call, not a loop.
 ``state`` is the (d,) or (N, d) int32 age rows for rAge-k, the (age,
 cost) pair for CAFe, a ``torch.Generator`` for the stochastic baselines
 (the reference's PRNG key; the draws differ, the semantics do not) and
-``()`` for the deterministic ones. Every ranking is a stable descending
-sort, as the stable ``lax.top_k``: ties go to the lower position.
+``()`` for the deterministic ones; ``init_state(d, gen, device)`` and
+``init_batch_state(d, n, gen, device)`` make a fresh one, and every class
+satisfies the runtime-checkable :class:`Strategy` protocol. Every ranking
+is a stable descending sort, as the stable ``lax.top_k``: ties go to the
+lower position.
 
 rAge-k's cluster-coordinated selection is segmented: clients are grouped
 by cluster into a (C, S) members matrix (client order kept within each
@@ -19,7 +22,7 @@ beside its kernel, as ``kernels.segmented_topk.segmented_age_topk_plain``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Any, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
@@ -64,12 +67,50 @@ def _draw(gen, lead: tuple, n: int, k: int, device) -> torch.Tensor:
     ``gen`` (int64): the k largest of n uniforms. (``torch.multinomial``
     without replacement checks its weights on the host, a sync that a
     CUDA graph cannot hold.)"""
-    if not isinstance(gen, torch.Generator):
-        raise ValueError("a stochastic strategy draws from an explicit "
-                         "torch.Generator (a shared default would make "
-                         f"every client draw the same), got {gen!r}")
-    u = torch.rand((*lead, n), generator=gen, device=device)
+    u = torch.rand((*lead, n), generator=_require_gen(gen, "the draw"),
+                   device=device)
     return torch.topk(u, k, dim=-1).indices
+
+
+def _require_gen(gen, name: str):
+    """``gen`` if it is a ``torch.Generator``; else raises (the
+    reference's rule for a missing PRNG key)."""
+    if not isinstance(gen, torch.Generator):
+        raise ValueError(f"{name} is stochastic: it needs an explicit "
+                         f"torch.Generator (a shared default would make "
+                         f"every client draw the same), got {gen!r}")
+    return gen
+
+
+def _zeros(shape, device):
+    return torch.zeros(shape, dtype=torch.int32, device=device)
+
+
+@runtime_checkable
+class Strategy(Protocol):
+    """select(g, state) -> (idx, vals, state) for one (d,) vector, and
+    select_batch(G, state) for the (N, d) batch. ``init_state(d, gen,
+    device)`` gives a fresh state for one vector and
+    ``init_batch_state(d, n, gen, device)`` for the batch."""
+
+    name: str
+    k: int
+
+    def init_state(self, d: int, gen=None, device=None) -> Any: ...
+
+    def select(self, g: torch.Tensor, state: Any): ...
+
+    def select_batch(self, G: torch.Tensor, state: Any): ...
+
+
+class _Stateless:
+    """The state of a deterministic method: ``()``."""
+
+    def init_state(self, d: int, gen=None, device=None):
+        return ()
+
+    def init_batch_state(self, d: int, n: int, gen=None, device=None):
+        return ()
 
 
 def _reset_picked(age: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,7 +119,7 @@ def _reset_picked(age: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
-class Dense:
+class Dense(_Stateless):
     """No compression: every client uploads the full gradient."""
 
     name: str = "dense"
@@ -92,7 +133,7 @@ class Dense:
 
 
 @dataclass(frozen=True)
-class TopK:
+class TopK(_Stateless):
     """Classic top-k magnitude sparsification [Lin et al. 2018]."""
 
     k: int
@@ -112,6 +153,12 @@ class RandomK:
 
     k: int
     name: str = "random_k"
+
+    def init_state(self, d: int, gen=None, device=None):
+        return _require_gen(gen, "RandomK")
+
+    def init_batch_state(self, d: int, n: int, gen=None, device=None):
+        return _require_gen(gen, "RandomK")
 
     def select(self, g, gen):
         idx = _draw(gen, g.shape[:-1], g.shape[-1], self.k, g.device)
@@ -137,6 +184,12 @@ class RTopK:
     k: int
     name: str = "rtop_k"
     candidates: str = "sort"
+
+    def init_state(self, d: int, gen=None, device=None):
+        return _require_gen(gen, "RTopK")
+
+    def init_batch_state(self, d: int, n: int, gen=None, device=None):
+        return _require_gen(gen, "RTopK")
 
     def select(self, g, gen):
         cand = topr_candidates(g, self.r, self.candidates)
@@ -166,6 +219,12 @@ class RAgeK:
     k: int
     name: str = "rage_k"
     candidates: str = "sort"
+
+    def init_state(self, d: int, gen=None, device=None):
+        return _zeros((d,), device)
+
+    def init_batch_state(self, d: int, n: int, gen=None, device=None):
+        return _zeros((n, d), device)
 
     def select(self, g, age, exclude=None):
         cand = topr_candidates(g, self.r, self.candidates).to(torch.int64)
@@ -206,6 +265,12 @@ class CAFeAgeK:
     lam: float = 0.1
     name: str = "cafe"
     candidates: str = "sort"
+
+    def init_state(self, d: int, gen=None, device=None):
+        return _zeros((d,), device), _zeros((d,), device)
+
+    def init_batch_state(self, d: int, n: int, gen=None, device=None):
+        return _zeros((n, d), device), _zeros((n, d), device)
 
     def select(self, g, state):
         age, cost = state

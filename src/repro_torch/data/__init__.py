@@ -1,0 +1,12 @@
+"""Synthetic datasets, the paper's non-i.i.d. splits and the batch
+pipelines (the port of ``repro.data``'s exports). ``token_stream``, the
+LM training stream, comes with ROADMAP item 16.8 (LM training)."""
+from repro_torch.data.synthetic import (  # noqa: F401
+    make_image_dataset, mnist_like, cifar10_like,
+)
+from repro_torch.data.federated import (  # noqa: F401
+    label_partition, paper_mnist_split, paper_cifar_split,
+)
+from repro_torch.data.pipeline import (  # noqa: F401
+    BatchIterator, DeviceShardStore, SamplerState,
+)

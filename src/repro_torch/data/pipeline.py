@@ -1,6 +1,6 @@
-"""Device-resident client data: the port of ``DeviceShardStore``,
-``SamplerState``, ``draw``, ``draw_one`` and ``draw_gathered`` from
-``repro.data.pipeline``.
+"""Client data pipelines: the port of ``BatchIterator`` (the host numpy
+reference), ``DeviceShardStore``, ``SamplerState``, ``draw``,
+``draw_one`` and ``draw_gathered`` from ``repro.data.pipeline``.
 
 Every client shard is uploaded once, padded to a common capacity; the
 true per-client lengths bound every permutation, so padding is never
@@ -10,7 +10,7 @@ client reshuffles.
 
 A client's e-th permutation is a function of (store seed, client id, e)
 alone: the row sort of a 32-bit hash of those words and the position
-(``fl.latency.mix32`` rounds, the seed's folded on the host), padding
+(``hashing.mix32`` rounds, the seed's folded on the host), padding
 keyed past every hash so that it sorts last. ``SamplerState.epoch`` counts each client's
 permutations, so a client's batches depend on nothing but its own draws,
 whoever else drew: :meth:`DeviceShardStore.draw` (every client),
@@ -39,8 +39,31 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.fl.client import put_rows
-from repro_torch.fl.latency import SHUFFLE, hash32, mix32
+from repro_torch.hashing import SHUFFLE, hash32, mix32
+
+
+class BatchIterator:
+    """Infinite shuffled batch iterator over (x, y): the host-paced numpy
+    reference of the epoch semantics (a verbatim copy of the reference's;
+    the same seed gives the same batches)."""
+
+    def __init__(self, x, y, batch_size: int, *, seed: int = 0):
+        self.x, self.y = x, y
+        self.bs = min(batch_size, len(y))
+        self.rng = np.random.default_rng(seed)
+        self._order = self.rng.permutation(len(y))
+        self._pos = 0
+
+    def __next__(self):
+        if self._pos + self.bs > len(self._order):
+            self._order = self.rng.permutation(len(self.y))
+            self._pos = 0
+        sel = self._order[self._pos:self._pos + self.bs]
+        self._pos += self.bs
+        return self.x[sel], self.y[sel]
+
+    def __iter__(self):
+        return self
 
 
 class SamplerState(NamedTuple):
@@ -122,7 +145,7 @@ class DeviceShardStore:
                                 _take(state, rows), H)
         client = rows.view(-1, 1, 1)
         return (x[client, sel][0], y[client, sel][0],
-                put_rows(state, rows, new))
+                _put(state, rows, new))
 
     def draw_gathered(self, data, state: SamplerState, H: int,
                       idx: torch.Tensor):
@@ -136,7 +159,7 @@ class DeviceShardStore:
         sel, new = self._select(rows, lengths.index_select(0, rows),
                                 _take(state, rows), H)
         client = rows.view(-1, 1, 1)
-        return x[client, sel], y[client, sel], put_rows(
+        return x[client, sel], y[client, sel], _put(
             state, idx.to(torch.int64), new)
 
     def _select(self, rows, lengths, state: SamplerState, H: int):
@@ -168,3 +191,16 @@ class DeviceShardStore:
 
 def _take(state: SamplerState, rows: torch.Tensor) -> SamplerState:
     return SamplerState(*(t.index_select(0, rows) for t in state))
+
+
+def _put(state: SamplerState, idx: torch.Tensor,
+         new: SamplerState) -> SamplerState:
+    """``state`` with the rows ``idx`` set to ``new``'s; ids equal to N
+    (a padded slot's sentinel) land in a spare row that is cut off
+    (``fl.client.put_rows`` on the sampler's leaves: the data package
+    sits below ``fl``, whose engine imports it)."""
+    def put(a, b):
+        out = torch.cat([a, a[:1]])
+        out.index_copy_(0, idx, b)
+        return out[:a.shape[0]]
+    return SamplerState(*(put(a, b) for a, b in zip(state, new)))

@@ -95,6 +95,8 @@ from repro_torch.optim.optimizers import adam, apply_updates, sgd
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
          "float16": torch.float16}
+# the reference's names for the aggregation hand-off (see FederatedEngine)
+AGGREGATE_IMPLS = ("auto", "jnp", "pallas")
 
 
 class DeviceAgeState(NamedTuple):
@@ -444,6 +446,26 @@ def _recluster_host(freq: np.ndarray, cluster_age: np.ndarray,
     return new_ca, st.cluster_of
 
 
+def recluster_packed(age: DeviceAgeState, eps: float, min_pts: int):
+    """Eq. (3) similarity -> DBSCAN -> merge/reset of the cluster age rows
+    on a dense-layout state, as a function: the (N, d) counts and the
+    rows come down, the new rows and labels go back to the age's device.
+    Returns (new DeviceAgeState, host (N,) labels)."""
+    new_ca, labels = _recluster_host(
+        age.freq.cpu().numpy(), age.cluster_age.cpu().numpy(),
+        age.cluster_of.cpu().numpy(), eps, min_pts)
+    dev = age.cluster_age.device
+    return age._replace(
+        cluster_age=torch.from_numpy(new_ca).to(dev),
+        cluster_of=torch.from_numpy(labels.astype(np.int32)).to(dev)), labels
+
+
+def recluster(age: DeviceAgeState, eps: float,
+              min_pts: int) -> DeviceAgeState:
+    """:func:`recluster_packed` without the labels."""
+    return recluster_packed(age, eps, min_pts)[0]
+
+
 def _write(dst, src):
     """Copy a tree of new tensors (tensors, tuples, NamedTuples, dicts) into
     the buffers of the same tree, in place: the engine's state keeps its
@@ -482,7 +504,14 @@ class FederatedEngine:
     ``fl.faults.FaultModel`` over the same N clients) injects crashes and
     wire faults, keyed by ``seed + 77`` and the round; ``quarantine``
     turns the PS's validation gate on (finite rows, ``|g| <=
-    gate_bound``).
+    gate_bound``). ``aggregate_impl`` keeps the reference's names for how
+    rAge-k's segmented selection hands its uploads to the aggregation:
+    'pallas' (and 'auto') the segmented (C, S, k) layout straight into
+    ``aggregate_sparse_fused``, 'jnp' the per-client (N, k) rows through
+    ``aggregate_sparse``; on the card both launch the CUDA
+    ``sparse_aggregate``. The kernel sums in upload order, cluster-major
+    or client-major: where three or more uploads hit one index the two
+    can round apart.
 
     Two drivers run the same round body on the same state: :meth:`run`
     steps eagerly and pulls every round's metrics; :meth:`run_scanned`
@@ -497,7 +526,11 @@ class FederatedEngine:
                  params=None, state=None, ef: bool = False,
                  global_opt: str = "adam", selection: str = "segmented",
                  compute: str = "auto", faults=None,
-                 quarantine: bool = True, gate_bound: float = 1e4):
+                 quarantine: bool = True, gate_bound: float = 1e4,
+                 aggregate_impl: str = "auto"):
+        if aggregate_impl not in AGGREGATE_IMPLS:
+            raise ValueError(f"aggregate_impl must be one of "
+                             f"{AGGREGATE_IMPLS}, got {aggregate_impl!r}")
         if selection not in ("scan", "segmented"):
             raise ValueError(f"selection must be 'scan' or 'segmented', "
                              f"got {selection!r}")
@@ -528,6 +561,11 @@ class FederatedEngine:
         # rage_k's 'segmented' (per-cluster parallel) or 'scan' (the
         # sequential reference, equal to it)
         self._selection = selection
+        # how the segmented selection's uploads reach the aggregation:
+        # 'pallas' hands the (C, S, k) layout over as it is, 'jnp' the
+        # per-client (N, k) rows; either way ops.sparse_aggregate
+        self._agg_impl = ("pallas" if aggregate_impl == "auto"
+                          else aggregate_impl)
         self._strategy = make_strategy(hp.method, r=hp.r, k=hp.k,
                                        lam=hp.cafe_lam,
                                        candidates=hp.candidates)
@@ -922,7 +960,7 @@ class FederatedEngine:
             vals, sent = self._upload(G, idx, plan, act_idx, ok)
             if idx is None:
                 g_sum = vals.sum(0)
-            elif seg is not None:
+            elif seg is not None and self._agg_impl == "pallas":
                 # the segmented layout feeds aggregation directly: padded
                 # member slots and unpacked clients carry the sentinel
                 # index d, which the kernel drops
@@ -1363,6 +1401,16 @@ class FederatedEngine:
     def cluster_of(self) -> np.ndarray:
         self._recluster_join()
         return self.age.cluster_of.cpu().numpy().astype(np.int64)
+
+    @property
+    def client_aoi(self) -> np.ndarray:
+        """(N,) int64 rounds since the PS last heard from each client: the
+        participation plane's client-level AoI."""
+        return self.sched.aoi.cpu().numpy().astype(np.int64)
+
+    @property
+    def scheduler(self):
+        return self._scheduler
 
     @property
     def freq_matrix(self) -> np.ndarray:

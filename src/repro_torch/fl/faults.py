@@ -17,7 +17,7 @@ and dispatch in the service):
 
 The reference keys each draw by ``fold_in(key, lane, coordinates)``.
 Here a draw is a counter-keyed 32-bit hash on the device
-(``fl.latency.hash32``) of (the client, ``seed``, key, the stream ROUND
+(``hashing.hash32``) of (the client, ``seed``, key, the stream ROUND
 or DISPATCH, the round or dispatch count, the lane's id 101-105): a
 replayed CUDA graph and a resumed run draw their own round from the
 device round counter, with no generator state. The lanes share the
@@ -37,7 +37,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.fl.latency import DISPATCH, ROUND, hash32, mix32
+from repro_torch.hashing import DISPATCH, ROUND, hash32, mix32
 
 # the lanes' hash words, as the reference's fold_in lane ids
 _LANE = {"crash": 101, "nan": 102, "inf": 103, "byz": 104, "drop": 105}

@@ -15,7 +15,7 @@ recomputes round t-1's stragglers at round t.
 
 * :class:`Full`: everyone, every round.
 * :class:`UniformM`: m of N uniformly at random a round: the top m of N
-  counter-keyed uniforms (``fl.latency.hash32``), no permutation.
+  counter-keyed uniforms (``hashing.hash32``), no permutation.
 * :class:`AoIBalanced`: the m clients unheard from longest; a stable
   descending sort of the AoI, so ties go to the lower id, as the
   reference's stable ``lax.top_k``.
@@ -31,7 +31,8 @@ from typing import Any, NamedTuple, Protocol, runtime_checkable
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.fl.latency import UNIFORM, LatencyModel, hash32
+from repro_torch.fl.latency import LatencyModel
+from repro_torch.hashing import UNIFORM, hash32
 
 SCHEDULES = ("full", "uniform", "aoi", "deadline")
 

@@ -246,13 +246,18 @@ def test_package_imports_no_jax():
                                          os.path.dirname(root)})
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 38
+    assert len(mods) >= 56
     assert {"repro_torch.configs.internlm2_1_8b", "repro_torch.launch.serve",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.registry",
             "repro_torch.kernels.decode_attention",
             "repro_torch.configs.cifar_cnn", "repro_torch.configs.mnist_mlp",
-            "repro_torch.models.paper_nets"} <= mods
+            "repro_torch.models.paper_nets", "repro_torch.hashing",
+            "repro_torch.core.sparsify", "repro_torch.core.protocol",
+            "repro_torch.fl.simulation", "repro_torch.launch.fl_train",
+            "repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.federated_mnist",
+            "repro_torch.examples.clustered_cifar"} <= mods
 
 
 def test_no_silent_cpu(fig3_data, monkeypatch):
