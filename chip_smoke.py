@@ -154,7 +154,22 @@ the last line:
 9. long decode: the same model with a 32,768-position cache of batch 8
    filled with seeded random values, 16 decode steps at its end: host ms
    per step, then under ``torch.profiler`` the device's busy ms and
-   ``decode_attention``'s device ms per step.
+   ``decode_attention``'s device ms per step;
+6r. lm train (after 9): the rAge-k report on internlm2-1.8b's
+   ``mlp.w1`` and embedding gradient rows (402,653,184 and 189,792,256
+   bfloat16, r 485 and 229) and on a seeded row, and ``sparse_aggregate``
+   at d 402,653,184 with 61 and 122 uploads, each == its plain version
+   on the card, beside ``torch.topk`` and ``index_add_``, and the
+   report's survivors; every sync (``sync_grads`` for rage_k, cafe,
+   top_k and dense on both candidate planes, ``make_manual_sync`` with
+   masks and the gate, ``make_buffered_sync``) on the smoke config card
+   == CPU from handed gradients over a world-size-1 NCCL group;
+   internlm2-1.8b at full width in bfloat16 (batch 8, seq 128, r 2,048,
+   k 256), ``LM_STEPS`` steps of each ``LM_PATHS`` path from one
+   ``T.init``: finite losses, each step's launches (``lm_per_step``), ms
+   a step, the busy share and top kernels of profiled steps, peak bytes;
+   ``launch.train --smoke --steps 20`` for both methods and the example
+   at ``--steps 60`` on the card.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -4185,6 +4200,514 @@ def phase_cli(torch, dev, scratch: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# 6r: LM training with the rAge-k sparse gradient sync
+# ---------------------------------------------------------------------------
+
+# the reference CLI's defaults (src/repro/launch/train.py): batch 8, seq
+# 128, Adam lr 1e-3, r 2,048, k 256; steps of each full-width path
+LM_TRAIN = dict(batch=8, seq=128, lr=1e-3, r=2048, k=256)
+LM_STEPS = 10
+# the profiled steps at the end of each path's LM_STEPS
+LM_PROFILED = 2
+# the reference example's final losses at --steps 60 on a CPU (the
+# reference's own RNG streams): read beside the port's, never a gate
+REF_EXAMPLE = {"rage_k": 5.3894, "dense": 3.6821}
+# full-width paths: (label, driver, method, candidates); the manual
+# syncs run over a world-size-1 NCCL group
+LM_PATHS = [("single rage_k sort", "single", "rage_k", "sort"),
+            ("single rage_k threshold", "single", "rage_k", "threshold"),
+            ("single dense", "single", "dense", "sort"),
+            ("manual rage_k threshold validate", "manual", "rage_k",
+             "threshold"),
+            ("manual dense", "manual", "dense", "sort"),
+            ("buffered rage_k threshold k 2", "buffered", "rage_k",
+             "threshold")]
+
+
+def lm_per_step(driver: str, method: str, candidates: str,
+                buckets: int) -> dict:
+    """A full-width step's launches: the report's two kernels a bucket on
+    the threshold plane, and the union's ``sparse_aggregate`` a bucket in
+    the manual syncs; dense and the sort plane none."""
+    from repro_torch.kernels import build
+    per = {k: 0 for k in build.LAUNCHES}
+    if method != "dense" and candidates == "threshold":
+        per["maghist_batch"] = per["threshold_topk_batch"] = buckets
+    if method != "dense" and driver != "single":
+        per["sparse_aggregate"] = buckets
+    return per
+
+
+def survivors(torch, row, r: int) -> int:
+    """The report's survivors on one row: the values at or above its
+    threshold fine bin (the fine bin b where the count from the top first
+    reaches r), NaN lanes aside, counted from ``maghist.fine_slots``."""
+    from repro_torch.kernels import maghist as MH
+    h = torch.bincount(MH.fine_slots(row).reshape(-1),
+                       minlength=MH.SLOTS).tolist()
+    above = 0
+    for f in range(MH.SLOTS - 2, 0, -1):
+        if above + h[f] >= r:
+            return above + h[f]
+        above += h[f]
+    return above + h[0]
+
+
+def lm_report_check(torch, row, r: int, label: str) -> dict:
+    """The report as a bucket's selection calls it (``ops.threshold_topk``
+    on one row: the f32 copy, ``maghist_batch``'s counts and
+    ``threshold_topk_batch``) against its plain version on the card
+    (``report.threshold_topk_plain``: per-block histograms and a stable
+    sort of the masked row), vals and indices exactly (ties to the lower
+    index); two launches. Device times beside the bound (one read of the
+    float32 row the kernels are handed, the report written), the plain
+    version and ``torch.topk`` of the magnitudes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import report as RP
+
+    g = row.reshape(-1)
+    before = dict(build.LAUNCHES)
+    vals, idx = ops.threshold_topk(g, r)
+    rose = {k: build.LAUNCHES[k] - before[k] for k in before}
+    if rose != {k: int(k in ("maghist_batch", "threshold_topk_batch"))
+                for k in before}:
+        raise AssertionError(f"lm report {label}: launched {rose}")
+    pv, pi = RP.threshold_topk_plain(g.reshape(1, -1), r)
+    if not (torch.equal(idx.long(), pi[0]) and torch.equal(vals, pv[0])):
+        bad = int((idx.long() != pi[0]).sum())
+        raise AssertionError(f"lm report {label}: the kernels differ from "
+                             f"the plain version at {bad} of {r} places")
+    d = g.numel()
+    g32 = g.to(torch.float32)
+    mag = g32.abs()
+    b, by = bound(4 * d + 8 * r, d)
+    rec = dict(bucket=label, d=d, r=r, dtype=str(g.dtype).split(".")[-1],
+               survivors=survivors(torch, g32.reshape(1, -1), r),
+               ms=device_ms(lambda: ops.threshold_topk(g32, r), reps=10,
+                            warmup=2),
+               plain_ms=device_ms(lambda: RP.threshold_topk_plain(
+                   g32.reshape(1, -1), r), reps=3, warmup=1),
+               bound_ms=b, bound_by=by,
+               library_ms=device_ms(lambda: torch.topk(mag, r), reps=10,
+                                    warmup=2))
+    say(f"  report at {label} (d {d:,}, r {r}, {rec['dtype']} cast to "
+        f"float32): card == plain exactly ({int((pv[0] == pv[0][-1]).sum())}"
+        f" ties at the r-th magnitude); {rec['survivors']:,} survivors; "
+        f"kernels {rec['ms']:.4f} ms (2 launches), plain "
+        f"{rec['plain_ms']:.4f}, torch.topk {rec['library_ms']:.4f}, bound "
+        f"{b:.6f} ({by})")
+    return rec
+
+
+def lm_aggregate_check(torch, dev, gen, d: int, k: int) -> list:
+    """``sparse_aggregate`` at one bucket's d with k and 2 k uploads (one
+    and two ranks' picks: the second rank's half repeat the first's,
+    sentinels d among them): dense and ages equal to the plain version
+    exactly (at most two adds a coordinate commute), and repeatable.
+    Device times beside the bound (12 d + 8 NK bytes), the plain version
+    and ``index_add_`` into zeros (no age lane)."""
+    from repro_torch.kernels import sparse_aggregate as SA
+
+    age = torch.randint(0, 30, (d,), generator=gen, device=dev).int()
+    first = torch.randint(0, d, (k,), generator=gen, device=dev).int()
+    second = torch.randint(0, d, (k,), generator=gen, device=dev).int()
+    second[:k // 2] = first[:k // 2]
+    first[-1] = second[-2] = d                       # sentinels
+    recs = []
+    for idx in (first, torch.cat([first, second])):
+        vals = torch.randn(idx.numel(), generator=gen, device=dev)
+        dense, new_age = SA.sparse_aggregate(idx, vals, age)
+        dp, ap = SA.sparse_aggregate_plain(idx, vals, age)
+        if not (torch.equal(dense, dp) and torch.equal(new_age, ap)):
+            raise AssertionError(f"sparse_aggregate differs from plain at "
+                                 f"d {d}, NK {idx.numel()}")
+        if not torch.equal(dense, SA.sparse_aggregate(idx, vals, age)[0]):
+            raise AssertionError("sparse_aggregate is not repeatable")
+        nk = idx.numel()
+        idx64 = idx.long().clamp(max=d - 1)
+        b, by = bound(12 * d + 8 * nk, nk)
+        rec = dict(nk=nk, d=d, ms=device_ms(
+            lambda: SA.sparse_aggregate(idx, vals, age), reps=10, warmup=2),
+            plain_ms=device_ms(lambda: SA.sparse_aggregate_plain(
+                idx, vals, age), reps=5, warmup=1),
+            bound_ms=b, bound_by=by,
+            library_ms=device_ms(lambda: torch.zeros(
+                d, device=dev).index_add_(0, idx64, vals), reps=10,
+                warmup=2))
+        say(f"  sparse_aggregate d={d:,} NK={nk}: == plain exactly; kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, index_add_ "
+            f"{rec['library_ms']:.4f}, bound {b:.6f} ({by})")
+        recs.append(rec)
+    return recs
+
+
+def _cpu_mesh():
+    """This process alone on the CPU, whatever group is initialized."""
+    import torch
+    from repro_torch.launch.mesh import HostMesh
+    return HostMesh({"data": 1, "model": 1}, None, 0, torch.device("cpu"))
+
+
+def _same_tree(torch, a, b) -> bool:
+    from repro_torch.tree import leaves
+    return all(torch.equal(x.cpu(), y) for x, y in zip(leaves(a),
+                                                        leaves(b)))
+
+
+def lm_sync_parity(torch, dev, mesh) -> str:
+    """internlm2-1.8b's smoke config in float32: the CPU's gradients of
+    one batch handed to every sync on the card and on the CPU; synced
+    values, ages and stats equal exactly."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.dist import sparse_sync as SS
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map, value_and_grad
+
+    cfg = get_smoke_config(ARCH).replace(dtype="float32", remat=False)
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = to_device(next(token_stream(cfg.vocab_size, 4, 32, seed=1)),
+                      "cpu")
+    _, grads = value_and_grad(lambda p, b: T.loss_fn(p, cfg, b)[0], params,
+                              batch)
+    kw = dict(r=LM_TRAIN["r"] // 8, k=LM_TRAIN["k"] // 8)
+    shapes = tree_map(lambda g: g.to("meta"), grads)
+    done = []
+    for method in ("rage_k", "cafe", "top_k", "dense"):
+        for cand in (("sort", "threshold") if method in ("rage_k", "cafe")
+                     else ("sort",)):
+            ages = SS.init_age_state(params, method=method)
+            # two steps, the second from the first's ages
+            outs = []
+            for d in ("cpu", dev):
+                a = tree_map(lambda t: t.to(d), ages)
+                g = tree_map(lambda t: t.to(d), grads)
+                res = []
+                for _ in range(2):
+                    s, a, st = SS.sync_grads(g, a, method=method,
+                                             candidates=cand, **kw)
+                    res.append((s, a, st))
+                outs.append(res)
+            for (s0, a0, st0), (s1, a1, st1) in zip(*outs):
+                if not (_same_tree(torch, s1, s0) and _same_tree(torch, a1, a0)
+                        and st0 == st1):
+                    raise AssertionError(f"sync_grads {method} {cand}: card "
+                                         f"!= CPU")
+            done.append(f"single {method} {cand}")
+    for method, validate, bk in (("rage_k", True, 0), ("cafe", False, 0),
+                                 ("top_k", False, 0), ("dense", True, 0),
+                                 ("rage_k", False, 2)):
+        outs = []
+        for m in (_cpu_mesh(), mesh):
+            d = m.device
+            mk = dict(method=method, candidates="threshold", validate=validate,
+                      **kw)
+            a = tree_map(lambda t: t.to(d), SS.init_age_state(
+                params, method=method))
+            g = tree_map(lambda t: t.to(d), grads)
+            if bk:
+                sync = SS.make_buffered_sync(m, None, shapes, buffer_k=bk,
+                                             **mk)
+                buf = sync.init_buffer()
+                res = []
+                for _ in range(2):
+                    s, a, buf, st = sync(g, a, buf)
+                    res.append((s, a, st))
+            else:
+                sync = SS.make_manual_sync(m, None, shapes, **mk)
+                res = []
+                for act in (None, torch.tensor([True], device=d)):
+                    s, a, st = sync(g, a, active=act)
+                    res.append((s, a, st))
+            outs.append(res)
+        for (s0, a0, st0), (s1, a1, st1) in zip(*outs):
+            same_stats = {k: int(v) for k, v in st0.items()} == {
+                k: int(v) for k, v in st1.items()}
+            if not (_same_tree(torch, s1, s0) and _same_tree(torch, a1, a0)
+                    and same_stats):
+                raise AssertionError(f"manual sync {method} validate "
+                                     f"{validate} buffer_k {bk}: card != CPU")
+        done.append(f"{'buffered' if bk else 'manual'} {method}"
+                    + (" validate" if validate else ""))
+    return (f"smoke config float32, the CPU's gradients handed over, two "
+            f"calls each: card == CPU exactly (synced values, ages, stats) "
+            f"for {', '.join(done)}")
+
+
+def lm_profile(torch, fn, steps: int) -> dict:
+    """``fn`` (``steps`` steps) under ``torch.profiler``: host ms a step,
+    device busy ms a step (``busy_union_us``) and the top device kernels
+    by time a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    top = ", ".join(f"{kernel_name(e.key)} {_dev_us(e) / steps / 1e3:.3f} "
+                    f"ms x{e.count / steps:g}"
+                    for e in sorted(rows, key=_dev_us, reverse=True)[:6])
+    busy = busy_union_us(prof) / steps / 1e3
+    return dict(ms=wall, busy_ms=busy, busy_share=busy / wall, top=top)
+
+
+def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
+    """Each ``LM_PATHS`` path for ``LM_STEPS`` steps from ``base`` (one
+    ``T.init``; the steps are functional and never write it): every
+    step's loss finite, the launches LM_STEPS times ``lm_per_step``; ms a
+    step on the host clock after a sync over the unprofiled steps 2 on,
+    then the last ``LM_PROFILED`` under the profiler (busy share, top
+    kernels); the allocator's peak. Returns {label: record}."""
+    import math
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.dist import sparse_sync as SS
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config(ARCH).replace(remat=False)
+    shape = InputShape("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"],
+                       "train")
+    buckets = len(leaves(base))
+    shapes = tree_map(lambda p: p.to("meta"), base)
+    out = {}
+    for label, driver, method, cand in LM_PATHS:
+        t_path = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = adam(LM_TRAIN["lr"])
+        opt_state = opt.init(base)
+        ages = SS.init_age_state(base)
+        kw = dict(method=method, r=LM_TRAIN["r"], k=LM_TRAIN["k"],
+                  candidates=cand)
+        held = {}                          # the buffered sync's buffer
+        if driver == "single":
+            step = SS.make_sync_train_step(
+                lambda p, b: T.loss_fn(p, cfg, b)[0], opt, mesh, **kw)
+
+            def one(state, batch):
+                p, o, a = state
+                p, o, a, loss, st = step(p, o, a, batch)
+                return (p, o, a), loss, st
+        else:
+            if driver == "manual":
+                sync = SS.make_manual_sync(mesh, None, shapes,
+                                           validate=method != "dense", **kw)
+            else:
+                buffered = SS.make_buffered_sync(mesh, None, shapes,
+                                                 buffer_k=2, **kw)
+                held["buf"] = buffered.init_buffer()
+
+                def sync(g, a):
+                    s, a, held["buf"], st = buffered(g, a, held["buf"])
+                    return s, a, st
+            tstep = make_train_step(cfg, shape, lr=LM_TRAIN["lr"], sync=sync)
+
+            def one(state, batch):
+                p, o, a = state
+                p, o, loss, a, st = tstep(p, o, batch, a)
+                return (p, o, a), loss, st
+        state = (base, opt_state, ages)
+        del opt_state, ages
+        losses, stats = [], None
+        build.reset_launches()
+        torch.cuda.synchronize()
+        times = []
+        for i in range(LM_STEPS - LM_PROFILED):
+            t0 = time.perf_counter()
+            state, loss, stats = one(state, stream_batches[i])
+            losses.append(loss)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+
+        def tail():
+            nonlocal state, stats
+            for i in range(LM_STEPS - LM_PROFILED, LM_STEPS):
+                state, loss, stats = one(state, stream_batches[i])
+                losses.append(loss)
+        prof = lm_profile(torch, tail, LM_PROFILED)
+        launches = dict(build.LAUNCHES)
+        want = {k: LM_STEPS * v for k, v in
+                lm_per_step(driver, method, cand, buckets).items()}
+        if launches != want:
+            raise AssertionError(f"lm {label}: launched {launches} in "
+                                 f"{LM_STEPS} steps, expected {want}")
+        losses = [float(x) for x in losses]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"lm {label}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        rec = dict(path=label, losses=losses,
+                   ms_steps=times[1:], ms=statistics.median(times[1:]),
+                   first_step_ms=times[0], profiled_ms=prof["ms"],
+                   busy_ms=prof["busy_ms"], busy_share=prof["busy_share"],
+                   peak_bytes=peak,
+                   wire_bytes_per_shard=int(stats["wire_bytes_per_shard"]),
+                   launches=launches)
+        if driver != "single":
+            rec.update({k: int(v) for k, v in stats.items()
+                        if k != "wire_bytes_per_shard"})
+        say(f"lm train: {label}: {LM_STEPS} steps, losses "
+            f"{losses[0]:.4f} .. {losses[-1]:.4f}; "
+            f"{rec['ms']:.1f} ms a step (median of steps 2-"
+            f"{LM_STEPS - LM_PROFILED}: "
+            f"{', '.join(f'{t:.1f}' for t in times[1:])}; first "
+            f"{times[0]:.1f}); profiled {prof['ms']:.1f} ms a step, busy "
+            f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%); "
+            f"peak {peak / 2**30:.2f} GiB; wire "
+            f"{rec['wire_bytes_per_shard']:,} B/shard a step; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; path wall "
+            f"{time.perf_counter() - t_path:.1f} s")
+        say(f"  top kernels a step: {prof['top']}")
+        out[label] = rec
+        del state, one
+        held.clear()
+    return out
+
+
+def phase_lm_train(torch, dev, scratch: str) -> tuple:
+    """6r: LM training with the rAge-k sparse gradient sync on the card.
+    The report and ``sparse_aggregate`` at the LM's bucket shapes against
+    their plain versions; every sync on the smoke config card == CPU from
+    handed gradients; internlm2-1.8b at full width in bfloat16 through
+    each ``LM_PATHS`` path (the manual syncs over a world-size-1 NCCL
+    group); ``launch.train --smoke`` for both methods and the example.
+    Returns (the phase's launch counts, the kernels' LM records)."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsify import bucket_budgets
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.examples import distributed_ragek_lm
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, value_and_grad
+
+    t_phase = time.perf_counter()
+    os.makedirs(scratch, exist_ok=True)
+    pg = os.path.join(scratch, "pg_file")
+    if os.path.exists(pg):
+        os.remove(pg)
+    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    total = {k: 0 for k in build.LAUNCHES}
+    try:
+        mesh = make_host_mesh(1, 1)
+        if mesh.group is None:
+            raise AssertionError("the mesh does not span the NCCL group")
+        say(f"lm train: {lm_sync_parity(torch, dev, mesh)}")
+
+        cfg = get_config(ARCH).replace(remat=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        base = T.init(cfg, gen, device=dev)
+        leaves, node = flatten(base)
+        names = _leaf_names(base)
+        sizes = [p.numel() for p in leaves]
+        budgets = bucket_budgets(sizes, LM_TRAIN["r"], LM_TRAIN["k"])
+        stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
+                              LM_TRAIN["seq"], seed=1)
+        batches = [train.to_device(next(stream), dev)
+                   for _ in range(LM_STEPS)]
+        say(f"lm train: {cfg.name} at full width: {sum(sizes):,} params in "
+            f"{len(leaves)} leaves, bfloat16, init {time.perf_counter() - t0:.1f}"
+            f" s; buckets (d, r_b, k_b): "
+            + ", ".join(f"{n} ({d:,}, {r}, {k})"
+                        for n, d, (r, k) in zip(names, sizes, budgets))
+            + f"; k total {sum(k for _, k in budgets)}")
+
+        # the kernels at the LM's bucket shapes: a real gradient of the
+        # first batch, and a seeded bfloat16 row of the largest bucket
+        _, grads = value_and_grad(lambda p, b: T.loss_fn(p, cfg, b)[0],
+                                  base, batches[0])
+        g_leaves = flatten(grads)[0]
+        big = max(range(len(sizes)), key=sizes.__getitem__)
+        emb = names.index("embed/w")
+        report = [lm_report_check(torch, g_leaves[big], budgets[big][0],
+                                  f"{names[big]} gradient"),
+                  lm_report_check(torch, g_leaves[emb], budgets[emb][0],
+                                  f"{names[emb]} gradient")]
+        del grads, g_leaves
+        row = (torch.randn(sizes[big], generator=gen, device=dev)
+               * 1e-3).to(torch.bfloat16)
+        report.append(lm_report_check(torch, row, budgets[big][0],
+                                      f"{names[big]} seeded randn"))
+        del row
+        aggregate = lm_aggregate_check(torch, dev, gen, sizes[big],
+                                       budgets[big][1])
+        torch.cuda.empty_cache()
+
+        runs = lm_full_width(torch, dev, mesh, base, batches)
+        for rec in runs.values():
+            for k, v in rec["launches"].items():
+                total[k] += v
+        del base, batches
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI (the card by default) and the example, in this process
+    import contextlib
+    import io
+    cli = {}
+    for method in ("rage_k", "dense"):
+        buf = io.StringIO()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = train.main(["--smoke", "--steps", "20", "--method",
+                              method])
+        wall = time.perf_counter() - t0
+        for k, v in build.LAUNCHES.items():
+            total[k] += v
+        losses = res["losses"]
+        if not all(map(math.isfinite, losses)) or (
+                method == "dense" and not losses[-1] < losses[0]):
+            raise AssertionError(f"launch.train --smoke {method}: losses "
+                                 f"{losses}")
+        cli[method] = losses
+        say(f"lm train: `launch.train --smoke --steps 20 --method {method}`"
+            f" on the card in {wall:.1f} s: "
+            + " | ".join(buf.getvalue().strip().splitlines()))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ex = distributed_ragek_lm.main(["--steps", "60"])
+    if not all(math.isfinite(r["loss"]) for r in ex.values()):
+        raise AssertionError(f"distributed_ragek_lm: {ex}")
+    say(f"lm train: distributed_ragek_lm --steps 60 in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + " | ".join(buf.getvalue().strip().splitlines())
+        + f" (the reference's on a CPU, its own RNG streams: rage_k "
+        f"{REF_EXAMPLE['rage_k']}, dense {REF_EXAMPLE['dense']})")
+    say(f"lm train: phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}")
+    return total, {"threshold_topk_batch": report,
+                   "sparse_aggregate": aggregate}
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Leaf paths in ``jax.tree_util`` order, joined with '/'."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        out += (_leaf_names(tree[k], path) if isinstance(tree[k], dict)
+                else [path])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4269,12 +4792,17 @@ def main() -> int:
     serve = phase_serve(torch, dev, profile)
     torch.cuda.empty_cache()
     long = phase_long_decode(torch, dev)
+    torch.cuda.empty_cache()
+    lm, lm_recs = phase_lm_train(torch, dev, os.path.join(ROOT, "build",
+                                                          "lm_smoke"))
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
             faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
-            fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long))
+            fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long, lm))
+        if k["name"] in lm_recs:
+            k["lm_buckets"] = lm_recs[k["name"]]
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.core import strategies as _S
 
 
@@ -99,37 +100,15 @@ def bucket_budgets(sizes: list[int], r: int, k: int) -> list[tuple[int, int]]:
     return out
 
 
-def _flatten(tree, leaves: list):
-    """The tree's structure, its leaves appended to ``leaves`` in
-    ``jax.tree_util`` order: dict keys sorted, lists and tuples in
-    order."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        return (dict, keys, [_flatten(tree[key], leaves) for key in keys])
-    if isinstance(tree, (list, tuple)):
-        return (type(tree), None, [_flatten(t, leaves) for t in tree])
-    leaves.append(tree)
-    return None
-
-
-def _unflatten(node, leaves):
-    if node is None:
-        return next(leaves)
-    kind, keys, children = node
-    built = [_unflatten(c, leaves) for c in children]
-    return dict(zip(keys, built)) if kind is dict else kind(built)
-
-
 def flatten_buckets(tree):
     """Tree (nested dicts, lists, tuples of arrays or tensors) -> list of
     flat per-leaf vectors, and the spec that :func:`unflatten_buckets`
     rebuilds the tree from."""
-    leaves: list = []
-    node = _flatten(tree, leaves)
+    leaves, node = _tree.flatten(tree)
     return [l.reshape(-1) for l in leaves], (node, [tuple(l.shape)
                                                     for l in leaves])
 
 
 def unflatten_buckets(flat: list, spec):
     node, shapes = spec
-    return _unflatten(node, iter(f.reshape(s) for f, s in zip(flat, shapes)))
+    return _tree.unflatten(node, [f.reshape(s) for f, s in zip(flat, shapes)])

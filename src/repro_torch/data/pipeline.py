@@ -1,6 +1,7 @@
 """Client data pipelines: the port of ``BatchIterator`` (the host numpy
 reference), ``DeviceShardStore``, ``SamplerState``, ``draw``,
-``draw_one`` and ``draw_gathered`` from ``repro.data.pipeline``.
+``draw_one`` and ``draw_gathered`` from ``repro.data.pipeline``, and of
+its LM stream ``token_stream`` (numpy, bit for bit the reference's).
 
 Every client shard is uploaded once, padded to a common capacity; the
 true per-client lengths bound every permutation, so padding is never
@@ -204,3 +205,32 @@ def _put(state: SamplerState, idx: torch.Tensor,
         out.index_copy_(0, idx, b)
         return out[:a.shape[0]]
     return SamplerState(*(put(a, b) for a, b in zip(state, new)))
+
+
+def token_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,
+                 order: int = 2):
+    """Synthetic LM data: a random order-``order`` Markov chain over
+    ``vocab`` tokens, each context mapped to one next token (a hash),
+    with a uniform jump one time in ten. Yields {"tokens", "labels"}
+    (batch, seq) int32 numpy arrays, labels the tokens shifted by one.
+    numpy's ``default_rng(seed)`` in the reference's order of draws, so
+    the batches are the reference's, bit for bit."""
+    rng = np.random.default_rng(seed)
+    ctx_hash_w = rng.integers(1, vocab, order)
+
+    def sample(n):
+        toks = rng.integers(0, vocab, (n, order))
+        out = np.empty((n, seq + 1), np.int64)
+        out[:, :order] = toks
+        for t in range(order, seq + 1):
+            h = (out[:, t - order:t] * ctx_hash_w).sum(1) % vocab
+            jump = rng.random(n) < 0.1
+            nxt = np.where(jump, rng.integers(0, vocab, n),
+                           (h * 31 + 7) % vocab)
+            out[:, t] = nxt
+        return out
+
+    while True:
+        chunk = sample(batch)
+        yield {"tokens": chunk[:, :-1].astype(np.int32),
+               "labels": chunk[:, 1:].astype(np.int32)}

@@ -2,8 +2,10 @@
 norms, RoPE, activations, MLPs, attention parameters and projections,
 the chunked prefill attention and the decode attention).
 
-Plain functions on tensors; parameters are nested dicts of tensors in the
-JAX layout (``x @ w`` with ``w`` of shape (d_in, d_out)). Draws take a
+Plain functions on tensors, differentiable by autograd (none writes in
+place into a tensor that autograd keeps; the training loss's gradient
+goes through them); parameters are nested dicts of tensors in the JAX
+layout (``x @ w`` with ``w`` of shape (d_in, d_out)). Draws take a
 ``torch.Generator`` and land on its device. The sharding constraints of
 the JAX file are not ported: on one card they are the identity.
 """
@@ -162,7 +164,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, D), k/v (B, Skv, G, D) -> (B, Sq, H, Dv): attention
     with an online softmax over KV chunks, as the reference computes it
     (inputs of each product rounded to the stored dtype, products summed
-    in float32, all -inf rows guarded). Plain PyTorch; the prefill path."""
+    in float32, all -inf rows guarded). Plain PyTorch; the prefill and
+    training path."""
     B, Sq, H, D = q.shape
     Skv, G = k.shape[1], k.shape[2]
     Dv = v.shape[-1]

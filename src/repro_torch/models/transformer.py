@@ -1,23 +1,28 @@
 """The LM for the dense decoder family: the port of the dense paths of
-``repro.models.transformer`` (parameter init, the prefill forward, the
-KV cache and the single-token decode step).
+``repro.models.transformer`` (parameter init, the training loss with
+its chunked cross entropy, the prefill forward, the KV cache and the
+single-token decode step).
 
 API (see registry.py):
   init(cfg, generator, device=None)             -> params
+  loss_fn(params, cfg, batch)                   -> (loss, aux)
   prefill(params, cfg, inputs)                  -> last-token logits
   init_cache(cfg, batch, max_len, device=None)  -> cache
   decode_step(params, cfg, inputs, cache, pos)  -> (logits, cache)
 
 Parameters keep the reference's tree: layer leaves stacked on a leading
 ``n_layers`` axis, so ``weights.params_from_jax`` carries them across
-leaf for leaf. Layers run in a Python loop. ``decode_step`` writes the
-new K/V rows into the cache in place and returns the same cache.
-Families other than ``dense`` (MoE, MLA, SSM, hybrid, VLM, audio) raise
+leaf for leaf. Layers run in a Python loop. The loss's gradient is
+plain autograd, as the reference's is plain autodiff (nothing in its
+``models/`` has a custom VJP). ``decode_step`` writes the new K/V rows
+into the cache in place and returns the same cache. Families other than
+``dense`` (MoE, MLA, SSM, hybrid, VLM, audio) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
@@ -115,9 +120,19 @@ def _dense_block_seq(p, cfg, x, positions):
 
 
 def _backbone(params, cfg, x, positions):
-    """The dense decoder stack over x: (B, S, d)."""
+    """The dense decoder stack over x: (B, S, d). Under ``cfg.remat`` each
+    layer's activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``), which changes memory and never values.
+    PyTorch has no policy that keeps the matmuls' outputs, so the
+    reference's ``remat_policy='save_dots'`` recomputes the whole layer
+    too, as ``'full'`` does."""
     for i in range(cfg.n_layers):
-        x = _dense_block_seq(_layer(params["layers"], i), cfg, x, positions)
+        p = _layer(params["layers"], i)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_dense_block_seq, p, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _dense_block_seq(p, cfg, x, positions)
     return x
 
 
@@ -125,6 +140,52 @@ def _unembed_w(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"]["w"].T          # (d, Vp)
     return params["lm_head"]["w"]
+
+
+def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
+                 labels: torch.Tensor, vocab_size: int,
+                 chunk: int = 256) -> torch.Tensor:
+    """Mean cross entropy over B * S without the (B, S, Vp) logits at
+    once: the sequence in chunks of ``chunk`` positions (the last padded,
+    its rows weighted 0), each chunk's logits in float32 from the inputs
+    as stored, the padded vocabulary (``w_unembed`` (d, Vp), Vp >=
+    ``vocab_size``) masked to -1e30, the gold logit by ``gather``.
+    x: (B, S, d); labels: (B, S) ints below ``vocab_size``."""
+    B, S, d = x.shape
+    Vp = w_unembed.shape[1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+    labels = labels.to(torch.int64)
+    dev = x.device
+    vmask = torch.arange(Vp, device=dev) < vocab_size
+    valid = (torch.arange(S + pad, device=dev) < S).to(torch.float32)
+    w = w_unembed.to(torch.float32)
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, S + pad, chunk):
+        logits = x[:, c0:c0 + chunk].to(torch.float32) @ w   # (B, c, Vp)
+        logits = torch.where(vmask, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        tot = tot + ((lse - gold) * valid[c0:c0 + chunk]).sum()
+    return tot / (B * S)
+
+
+def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
+    """batch: {"tokens", "labels"} (B, S) ints -> (mean next-token cross
+    entropy, aux). aux holds the reference's MoE terms, zero for the dense
+    family."""
+    require_ported(cfg)
+    x = params["embed"]["w"][batch["tokens"].to(torch.int64)]
+    h = _backbone(params, cfg, x,
+                  torch.arange(x.shape[1], device=x.device))
+    h = L.apply_norm(params["norm_f"], cfg, h)
+    loss = chunked_xent(h, _unembed_w(params, cfg), batch["labels"],
+                        cfg.vocab_size)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss, {"lb_loss": zero, "drop_frac": zero}
 
 
 def _logits(params, cfg, h):

@@ -246,7 +246,7 @@ def test_package_imports_no_jax():
                                          os.path.dirname(root)})
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 56
+    assert len(mods) >= 63
     assert {"repro_torch.configs.internlm2_1_8b", "repro_torch.launch.serve",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.registry",
@@ -257,7 +257,11 @@ def test_package_imports_no_jax():
             "repro_torch.fl.simulation", "repro_torch.launch.fl_train",
             "repro_torch.examples", "repro_torch.examples.quickstart",
             "repro_torch.examples.federated_mnist",
-            "repro_torch.examples.clustered_cifar"} <= mods
+            "repro_torch.examples.clustered_cifar", "repro_torch.tree",
+            "repro_torch.dist", "repro_torch.dist.sparse_sync",
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.train",
+            "repro_torch.examples.distributed_ragek_lm"} <= mods
 
 
 def test_no_silent_cpu(fig3_data, monkeypatch):

@@ -549,9 +549,10 @@ def test_aggregate_impl_rejects_unknown(mnist_small):
 # ---------------------------------------------------------------------------
 
 # names of the reference's packages that the port leaves out, with the
-# ROADMAP item that brings each
-NOT_YET = {("data", "token_stream"): "item 16.8 (LM training)"}
-PACKAGES_NOT_YET = {"dist": "item 15 (the distributed collective)"}
+# ROADMAP item that brings each (none since LM training and the sparse
+# collective were ported)
+NOT_YET = {}
+PACKAGES_NOT_YET = {}
 
 
 def _reference_exports(pkg: str) -> list:
