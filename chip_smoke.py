@@ -169,7 +169,26 @@ the last line:
    ``T.init``: finite losses, each step's launches (``lm_per_step``), ms
    a step, the busy share and top kernels of profiled steps, peak bytes;
    ``launch.train --smoke --steps 20`` for both methods and the example
-   at ``--steps 60`` on the card.
+   at ``--steps 60`` on the card;
+10. families (after 6r): the other dense configs, MoE and MLA
+   (gemma-2b, phi4-mini-3.8b, qwen1.5-110b, granite-moe-3b-a800m,
+   deepseek-v2-236b): ``decode_attention`` at each GQA arch's serve
+   shape (B 8 at 160 and 4,096 positions; gemma's rep 8 at head dim 256)
+   == its plain version beside SDPA; each arch card == CPU in float32
+   over 12 decode steps (gemma, phi4 and granite at full width with 2
+   layers, qwen and deepseek at their smoke configs); each served at
+   full width in bfloat16 through ``generate`` (batch 8, prompt 128, 32
+   tokens; qwen cut to 8 of 80 layers and deepseek to 4 of 60 by one
+   card's 80 GB, each against ``prefill`` over the same tokens):
+   ``decode_attention`` once per layer per step, none under MLA;
+   granite-moe-3b-a800m at full width, 16 of its 32 layers, in bfloat16:
+   the report and ``sparse_aggregate`` at its ``experts_w1`` gradient
+   row == their plain versions, then ``LM_STEPS`` steps of each
+   ``MOE_PATHS`` path (single rage_k threshold, the manual sync with the
+   gate on a world-size-1 NCCL group, dense) with each step's lb_loss,
+   drop_frac and launches, ms, busy share and peak; deepseek's smoke
+   training card == CPU; ``launch.train --smoke`` for granite and
+   deepseek and ``launch.serve --smoke`` for each new arch on the card.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -2404,6 +2423,51 @@ def _da_close(torch, got, want, tol):
     return atol
 
 
+def _da_cut(q, k, v, clen):
+    """The tile and splits ``choose_splits`` takes for this launch."""
+    from repro_torch.kernels import decode_attention as DA
+    DA.decode_attention(q, k, v, clen)
+    c = dict(DA.LAST_CUT)
+    return c, f"{c['splits']} splits of {c['tile_bytes'] // 1024} KB tiles"
+
+
+def _da_check(torch, q, k, v, clen, tol, splits=None):
+    """The kernel (with ``splits`` forced, or as ``choose_splits`` cuts)
+    against its plain version within ``_da_close``, bitwise repeatable,
+    zeros at cache_len 0. Returns (max |error|, the atol used)."""
+    from repro_torch.kernels import decode_attention as DA
+
+    def run():
+        if splits is None:
+            return DA.decode_attention(q, k, v, clen)
+        return DA._decode_attention_splits(q, k, v, clen, splits)
+    got = run()
+    want = DA.decode_attention_plain(q, k, v, clen)
+    atol = _da_close(torch, got, want, tol)
+    if not torch.equal(got, run()):
+        raise AssertionError("decode_attention is not bitwise repeatable")
+    if clen == 0 and got.any():
+        raise AssertionError("decode_attention: cache_len 0 is not zeros")
+    return float((got.float() - want.float()).abs().max()), atol
+
+
+def _da_times(torch, q, k, v, clen, tol) -> dict:
+    """Device times of the kernel, its plain version and SDPA (itself held
+    to the plain version first) beside the bound."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, H, D = q.shape
+    G = k.shape[2]
+    b, by = _da_bound(B, H, G, D, min(clen, k.shape[1]), q.element_size())
+    _da_close(torch, _sdpa(torch, q, k, v, clen),
+              DA.decode_attention_plain(q, k, v, clen), tol)
+    return dict(ms=device_ms(lambda: DA.decode_attention(q, k, v, clen)),
+                plain_ms=device_ms(
+                    lambda: DA.decode_attention_plain(q, k, v, clen)),
+                bound_ms=b, bound_by=by,
+                library_ms=device_ms(lambda: _sdpa(torch, q, k, v, clen)))
+
+
 def decode_attention_check(torch, dev, gen):
     """The CUDA kernel against its plain version at the sweep shapes (B 2)
     in float32 and bfloat16 with cache_len 0, 1, S - 13 and S, with the
@@ -2416,73 +2480,40 @@ def decode_attention_check(torch, dev, gen):
     took (``LAST_CUT``)."""
     from repro_torch.kernels import decode_attention as DA
 
-    def cut(q, k, v, clen):
-        DA.decode_attention(q, k, v, clen)
-        c = dict(DA.LAST_CUT)
-        return c, f"{c['splits']} splits of {c['tile_bytes'] // 1024} KB tiles"
-
     def inputs(B, H, G, D, S, dtype):
         return (torch.randn((B, H, D), generator=gen, device=dev).to(dtype),
                 torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype),
                 torch.randn((B, S, G, D), generator=gen, device=dev).to(dtype))
 
-    def check(q, k, v, clen, tol, splits=None):
-        def run():
-            if splits is None:
-                return DA.decode_attention(q, k, v, clen)
-            return DA._decode_attention_splits(q, k, v, clen, splits)
-        got = run()
-        want = DA.decode_attention_plain(q, k, v, clen)
-        atol = _da_close(torch, got, want, tol)
-        if not torch.equal(got, run()):
-            raise AssertionError("decode_attention is not bitwise repeatable")
-        if clen == 0 and got.any():
-            raise AssertionError("decode_attention: cache_len 0 is not zeros")
-        return float((got.float() - want.float()).abs().max()), atol
-
-    def times(q, k, v, clen, tol):
-        B, H, D = q.shape
-        G = k.shape[2]
-        b, by = _da_bound(B, H, G, D, min(clen, k.shape[1]),
-                          q.element_size())
-        # the yardstick computes the same function
-        _da_close(torch, _sdpa(torch, q, k, v, clen),
-                  DA.decode_attention_plain(q, k, v, clen), tol)
-        return dict(ms=device_ms(lambda: DA.decode_attention(q, k, v, clen)),
-                    plain_ms=device_ms(
-                        lambda: DA.decode_attention_plain(q, k, v, clen)),
-                    bound_ms=b, bound_by=by,
-                    library_ms=device_ms(lambda: _sdpa(torch, q, k, v, clen)))
-
     for dtype, tol in DA_TOL.items():
         for H, G, D, S in DA_SWEEP:
             q, k, v = inputs(2, H, G, D, S, getattr(torch, dtype))
-            err = max(check(q, k, v, clen, tol, splits)[0]
+            err = max(_da_check(torch, q, k, v, clen, tol, splits)[0]
                       for clen in (0, 1, S - 13, S)
                       for splits in (None, 1, 2, 3, 7))
-            t = times(q, k, v, S, tol)
+            t = _da_times(torch, q, k, v, S, tol)
             say(f"  decode_attention B=2 H={H} G={G} D={D} S={S} {dtype}: "
                 f"max_abs_err {err:.3e} (rtol {tol}); at cache_len S "
-                f"{cut(q, k, v, S)[1]}, kernel "
+                f"{_da_cut(q, k, v, S)[1]}, kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
                 f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
                 f"({t['bound_by']})")
     B, H, G, D, S = DA_SERVE
     q, k, v = inputs(B, H, G, D, S, torch.bfloat16)
-    err, atol = check(q, k, v, S, DA_TOL["bfloat16"])
-    t = times(q, k, v, S, DA_TOL["bfloat16"])
+    err, atol = _da_check(torch, q, k, v, S, DA_TOL["bfloat16"])
+    t = _da_times(torch, q, k, v, S, DA_TOL["bfloat16"])
     say(f"  decode_attention serve B={B} H={H} G={G} D={D} S={S} bfloat16: "
-        f"max_abs_err {err:.3e} (atol {atol:.2e}); {cut(q, k, v, S)[1]}, "
-        f"kernel {t['ms']:.4f} ms, "
+        f"max_abs_err {err:.3e} (atol {atol:.2e}); "
+        f"{_da_cut(q, k, v, S)[1]}, kernel {t['ms']:.4f} ms, "
         f"plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
         f"{t['bound_ms']:.6f} ({t['bound_by']})")
     B, H, G, D, S = DA_MAIN
     q, k, v = inputs(B, H, G, D, S, torch.bfloat16)
-    errs = [check(q, k, v, clen, DA_TOL["bfloat16"])
+    errs = [_da_check(torch, q, k, v, clen, DA_TOL["bfloat16"])
             for clen in (0, 1, S - 13, S)]
     err = max(e for e, _ in errs)
-    t = times(q, k, v, S, DA_TOL["bfloat16"])
-    main_cut, cut_text = cut(q, k, v, S)
+    t = _da_times(torch, q, k, v, S, DA_TOL["bfloat16"])
+    main_cut, cut_text = _da_cut(q, k, v, S)
     say(f"  decode_attention internlm2 B={B} H={H} G={G} D={D} S={S} "
         f"bfloat16 ({2 * k.numel() * 2 / 1e9:.2f} GB of K and V): "
         f"max_abs_err {err:.3e} (atol at cache_len S {errs[-1][1]:.2e}); "
@@ -2497,18 +2528,14 @@ def decode_attention_check(torch, dev, gen):
                 tile_bytes=main_cut["tile_bytes"])
 
 
-def phase_lm_parity(torch, dev):
-    """internlm2-1.8b at full width with 2 layers in float32: 8 prompt and
-    4 generated decode steps on the card and on the CPU from the same
-    parameters, both fed the CPU's tokens. Logits within rtol=atol=1e-4
-    and caches within 1e-5 (cuBLAS and the CPU's BLAS sum the
-    2048- and 8192-long float32 products in other orders; TF32 off), the
-    greedy tokens equal."""
-    from repro_torch.configs import get_config
+def decode_parity(torch, dev, cfg) -> float:
+    """``cfg`` (float32) from CPU-drawn seed-0 parameters: 8 prompt and 4
+    generated decode steps on the card and on the CPU, both fed the CPU's
+    tokens. Logits within rtol=atol=1e-4 and every cache within 1e-5
+    (cuBLAS and the CPU's BLAS sum the float32 products in other orders;
+    TF32 off), the greedy tokens equal. Returns the largest |logit diff|."""
     from repro_torch.models import transformer as T
 
-    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
-    t0 = time.perf_counter()
     cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = _tree_to(cpu, dev)
     B, P, GEN = 2, 8, 4
@@ -2524,14 +2551,26 @@ def phase_lm_parity(torch, dev):
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
         cur = lc.argmax(-1)
         if not torch.equal(lg.argmax(-1).cpu(), cur):
-            raise AssertionError(f"LM parity: greedy tokens differ at {t}")
+            raise AssertionError(f"{cfg.name} parity: greedy tokens differ "
+                                 f"at step {t}")
         err = max(err, float((lg.cpu() - lc).abs().max()))
-    for name in ("k", "v"):
+    for name in caches[0]:
         torch.testing.assert_close(caches[1][name].cpu(), caches[0][name],
                                    rtol=1e-5, atol=1e-5)
+    return err
+
+
+def phase_lm_parity(torch, dev):
+    """internlm2-1.8b at full width with 2 layers in float32 through
+    ``decode_parity``: 12 decode steps card == CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    err = decode_parity(torch, dev, cfg)
     say(f"LM parity: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
         f"G={cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
-        f"{cfg.n_layers} layers, float32: {P + GEN} decode steps card == "
+        f"{cfg.n_layers} layers, float32: 12 decode steps card == "
         f"CPU (max |logit diff| {err:.3e}, greedy tokens equal, caches "
         f"within 1e-5) in {time.perf_counter() - t0:.1f} s")
 
@@ -2585,54 +2624,72 @@ def phase_smoke_serve(torch, dev):
     return launches
 
 
-def phase_serve(torch, dev, profile: bool):
-    """internlm2-1.8b at full width and depth, bfloat16, random weights
-    from seed 0 on the card, served through ``launch.serve.generate``.
-    Returns the launch counts of the run."""
-    from repro_torch.configs import get_config
+def serve_arch(torch, dev, cfg) -> tuple:
+    """``cfg`` in bfloat16 with random weights from seed 0 on the card,
+    served through ``launch.serve.generate`` (batch 8, prompt 128, 32
+    generated tokens): finite logits of the right shape;
+    ``decode_attention`` once per layer per step and no other kernel
+    (none under MLA). Prints and returns (a record: prefill s, decode
+    tokens/s, ms a step, the allocator's peak, the cache's bytes, the
+    launches; the parameters, the prompts and the ``Generation``)."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
 
-    cfg = get_config(ARCH)
     B, P, GEN = 8, 128, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
     params = T.init(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=dev)
-    torch.cuda.reset_peak_memory_stats()
     n_params = sum(w.numel() for w in _leaves(params))
-    w_bytes = sum(w.numel() * w.element_size() for w in _leaves(params))
     build.reset_launches()
     out = generate(params, cfg, prompts, GEN)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = {k: (cfg.n_layers * (P + GEN) if k == "decode_attention" else 0)
+    per_step = 0 if cfg.use_mla else cfg.n_layers
+    want = {k: (per_step * (P + GEN) if k == "decode_attention" else 0)
             for k in launches}
     if launches != want:
-        raise AssertionError(f"serve: kernel launches {launches}, "
-                             f"expected {want}")
+        raise AssertionError(f"serve {cfg.name}: kernel launches "
+                             f"{launches}, expected {want}")
     if not out.finite or out.logits.shape != (B, cfg.padded_vocab):
-        raise AssertionError("serve: non-finite logits or a wrong shape")
-    kv_bytes = (2 * cfg.n_layers * B * (P + GEN) * cfg.n_kv_heads
-                * cfg.head_dim_ * 2)
-    say(f"serve: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
-        f"{n_params / 1e9:.3f} B params ({w_bytes / 1e9:.3f} GB bfloat16), "
-        f"batch {B}, prompt {P}, {GEN} generated tokens on "
-        f"{torch.cuda.get_device_name(0)}")
-    say(f"serve: prefill (by {P} decode steps) {out.prefill_s:.3f} s")
-    say(f"serve: decode {B * GEN / out.decode_s:.1f} tokens/s over the "
-        f"batch ({GEN / out.decode_s:.1f} tok/s per sequence, "
-        f"{out.decode_s / GEN * 1e3:.2f} ms per step)")
-    say(f"serve: peak device memory while serving {peak / 2**30:.3f} GiB; "
-        f"KV cache {kv_bytes / 2**20:.1f} MiB")
-    say(f"serve: kernel launches {launches} "
-        f"({cfg.n_layers} decode_attention per step, {P + GEN} steps)")
-    say("serve: generated token ids (first row): "
+        raise AssertionError(f"serve {cfg.name}: non-finite logits or a "
+                             f"wrong shape")
+    cache = T.init_cache(cfg, B, P + GEN, device="meta")
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, prefill_s=out.prefill_s,
+               decode_tok_s=B * GEN / out.decode_s,
+               ms_per_step=out.decode_s / GEN * 1e3, peak_bytes=peak,
+               cache_bytes=cache_bytes, launches=launches)
+    say(f"serve {cfg.name}: {cfg.n_layers} layers d={cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params bfloat16 (init {init_s:.1f} s) on "
+        f"{torch.cuda.get_device_name(0)}, batch {B}, prompt {P}, {GEN} "
+        f"tokens: prefill (by {P} decode steps) {out.prefill_s:.3f} s, "
+        f"decode {rec['decode_tok_s']:.1f} tokens/s over the batch "
+        f"({rec['ms_per_step']:.2f} ms a step), peak {peak / 2**30:.3f} "
+        f"GiB, cache {cache_bytes / 2**20:.1f} MiB ({'/'.join(cache)}), "
+        f"launches { {k: v for k, v in launches.items() if v} } "
+        f"({per_step} decode_attention a step); first row "
         f"{out.tokens[0].tolist()}")
+    return rec, params, prompts, out
+
+
+def phase_serve(torch, dev, profile: bool):
+    """internlm2-1.8b at full width and depth through ``serve_arch``.
+    Returns the launch counts of the run."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    rec, params, prompts, _ = serve_arch(torch, dev, cfg)
     if profile:
         profile_decode(torch, dev, params, cfg, prompts)
-    return launches
+    return rec["launches"]
 
 
 def _tree_to(tree, dev):
@@ -4460,15 +4517,20 @@ def lm_profile(torch, fn, steps: int) -> dict:
     return dict(ms=wall, busy_ms=busy, busy_share=busy / wall, top=top)
 
 
-def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
-    """Each ``LM_PATHS`` path for ``LM_STEPS`` steps from ``base`` (one
-    ``T.init``; the steps are functional and never write it): every
-    step's loss finite, the launches LM_STEPS times ``lm_per_step``; ms a
-    step on the host clock after a sync over the unprofiled steps 2 on,
-    then the last ``LM_PROFILED`` under the profiler (busy share, top
-    kernels); the allocator's peak. Returns {label: record}."""
+def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
+                  paths) -> dict:
+    """Each of ``paths`` ((label, driver, method, candidates)) for
+    ``LM_STEPS`` steps of ``cfg`` from ``base`` (one ``T.init``; the
+    steps are functional and never write it): every step's loss finite,
+    the launches LM_STEPS times ``lm_per_step``; ms a step on the host
+    clock after a sync over the unprofiled steps 2 on, then the last
+    ``LM_PROFILED`` under the profiler (busy share, top kernels); the
+    allocator's peak. Under MoE also each step's ``lb_loss`` and
+    ``drop_frac``, from a forward pass of the step's input parameters on
+    its batch outside the timed and profiled steps (``loss_fn``'s aux,
+    which the train steps do not return). Returns {label: record}."""
     import math
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape
     from repro_torch.dist import sparse_sync as SS
     from repro_torch.kernels import build
     from repro_torch.launch.steps import make_train_step
@@ -4476,13 +4538,17 @@ def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
     from repro_torch.optim.optimizers import adam
     from repro_torch.tree import leaves, tree_map
 
-    cfg = get_config(ARCH).replace(remat=False)
+    def aux_of(params, batch):
+        with torch.no_grad():
+            _, aux = T.loss_fn(params, cfg, batch)
+        return [float(aux["lb_loss"]), float(aux["drop_frac"])]
+
     shape = InputShape("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"],
                        "train")
     buckets = len(leaves(base))
     shapes = tree_map(lambda p: p.to("meta"), base)
     out = {}
-    for label, driver, method, cand in LM_PATHS:
+    for label, driver, method, cand in paths:
         t_path = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4520,24 +4586,33 @@ def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
                 return (p, o, a), loss, st
         state = (base, opt_state, ages)
         del opt_state, ages
-        losses, stats = [], None
+        losses, stats, auxes, held_in = [], None, [], []
         build.reset_launches()
         torch.cuda.synchronize()
         times = []
         for i in range(LM_STEPS - LM_PROFILED):
             t0 = time.perf_counter()
-            state, loss, stats = one(state, stream_batches[i])
+            prev, (state, loss, stats) = state[0], one(state,
+                                                       stream_batches[i])
             losses.append(loss)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+            if cfg.is_moe:
+                auxes.append(aux_of(prev, stream_batches[i]))
+            del prev
 
         def tail():
             nonlocal state, stats
             for i in range(LM_STEPS - LM_PROFILED, LM_STEPS):
+                if cfg.is_moe:
+                    held_in.append(state[0])
                 state, loss, stats = one(state, stream_batches[i])
                 losses.append(loss)
         prof = lm_profile(torch, tail, LM_PROFILED)
         launches = dict(build.LAUNCHES)
+        auxes += [aux_of(p, stream_batches[LM_STEPS - LM_PROFILED + j])
+                  for j, p in enumerate(held_in)]
+        del held_in
         want = {k: LM_STEPS * v for k, v in
                 lm_per_step(driver, method, cand, buckets).items()}
         if launches != want:
@@ -4557,6 +4632,11 @@ def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
         if driver != "single":
             rec.update({k: int(v) for k, v in stats.items()
                         if k != "wire_bytes_per_shard"})
+        if cfg.is_moe:
+            rec.update(lb_loss=[a[0] for a in auxes],
+                       drop_frac=[a[1] for a in auxes])
+            if not all(map(math.isfinite, rec["lb_loss"] + rec["drop_frac"])):
+                raise AssertionError(f"lm {label}: aux {auxes}")
         say(f"lm train: {label}: {LM_STEPS} steps, losses "
             f"{losses[0]:.4f} .. {losses[-1]:.4f}; "
             f"{rec['ms']:.1f} ms a step (median of steps 2-"
@@ -4568,6 +4648,9 @@ def lm_full_width(torch, dev, mesh, base, stream_batches) -> dict:
             f"{rec['wire_bytes_per_shard']:,} B/shard a step; launches "
             f"{ {k: v for k, v in launches.items() if v} }; path wall "
             f"{time.perf_counter() - t_path:.1f} s")
+        if cfg.is_moe:
+            say("  lb_loss / drop_frac a step: " + ", ".join(
+                f"{a:.4f} / {b:.4f}" for a, b in auxes))
         say(f"  top kernels a step: {prof['top']}")
         out[label] = rec
         del state, one
@@ -4649,7 +4732,8 @@ def phase_lm_train(torch, dev, scratch: str) -> tuple:
                                        budgets[big][1])
         torch.cuda.empty_cache()
 
-        runs = lm_full_width(torch, dev, mesh, base, batches)
+        runs = lm_full_width(torch, dev, mesh, base, batches, cfg,
+                             LM_PATHS)
         for rec in runs.values():
             for k, v in rec["launches"].items():
                 total[k] += v
@@ -4696,6 +4780,319 @@ def phase_lm_train(torch, dev, scratch: str) -> tuple:
         f"launches {total}")
     return total, {"threshold_topk_batch": report,
                    "sparse_aggregate": aggregate}
+
+
+# ---------------------------------------------------------------------------
+# 10: the other dense configs, MoE and MLA
+# ---------------------------------------------------------------------------
+
+# the archs this phase brings: three dense, granite's MoE, deepseek's MoE
+# with MLA attention
+FAMILIES = ("gemma-2b", "phi4-mini-3.8b", "qwen1.5-110b",
+            "granite-moe-3b-a800m", "deepseek-v2-236b")
+# decode_attention at each new serve shape, batch 8: the serve phase's cache
+# at its end and a longer one
+FAM_DA_S = (160, 4096)
+# card == CPU decode in float32 at full width with 2 layers (each under 4 GB
+# in float32); qwen1.5-110b and deepseek-v2-236b at their smoke configs (two
+# full-width float32 layers of those are 21 and 32 GB on the host as on the
+# card)
+FAM_PARITY_FULL = ("gemma-2b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
+# the serve depth cuts one card's 80 GB forces, of 80 and 60 layers
+# (bfloat16: qwen1.5-110b 1.36 B parameters a layer beside a 2.5 B untied
+# embedding and head; deepseek-v2-236b 4.05 B a layer, whose largest leaf
+# is drawn in float32 at init)
+FAM_SERVE_LAYERS = {"qwen1.5-110b": 8, "deepseek-v2-236b": 4}
+# decode against prefill at full width: qwen1.5-110b at its serve cut in
+# bfloat16; deepseek-v2-236b in float32 with 2 layers (34 GB), since in
+# bfloat16 the two paths' roundings flip the top 6 of its 160 experts for
+# some tokens (on the H100 one row's last logits came out 1.15 apart)
+FAM_MLA_CHECK_LAYERS = 2
+# granite-moe-3b-a800m's training cut, 16 of 32 layers: about internlm2-1.8b's
+# 1.7 B parameters, which phase 6r trains at a 54-68 GiB peak
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TRAIN_LAYERS = 16
+MOE_PATHS = [("single rage_k threshold", "single", "rage_k", "threshold"),
+             ("manual rage_k threshold validate", "manual", "rage_k",
+              "threshold"),
+             ("single dense", "single", "dense", "sort")]
+
+
+def family_da_check(torch, dev, gen) -> list:
+    """``decode_attention`` at each new GQA serve shape (B 8, the arch's H,
+    G and D) over ``FAM_DA_S`` positions in bfloat16, against its plain
+    version within ``_da_close`` at cache_len 1, S - 13 and S, bitwise
+    repeatable; device times beside the bound, the plain version and
+    ``scaled_dot_product_attention``. deepseek-v2-236b's MLA decode never
+    calls it."""
+    from repro_torch.configs import get_config
+
+    recs = []
+    tol = DA_TOL["bfloat16"]
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if cfg.use_mla:
+            continue
+        B, H, G, D = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        for S in FAM_DA_S:
+            q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+            k = torch.randn((B, S, G, D), generator=gen,
+                            device=dev).bfloat16()
+            v = torch.randn((B, S, G, D), generator=gen,
+                            device=dev).bfloat16()
+            err = max(_da_check(torch, q, k, v, clen, tol)[0]
+                      for clen in (1, S - 13, S))
+            cut, cut_text = _da_cut(q, k, v, S)
+            t = _da_times(torch, q, k, v, S, tol)
+            rec = dict(arch=arch, B=B, H=H, G=G, D=D, S=S, rep=H // G,
+                       max_abs_err=err, splits=cut["splits"],
+                       tile_bytes=cut["tile_bytes"], **t)
+            say(f"  decode_attention {arch} B={B} H={H} G={G} D={D} (rep "
+                f"{H // G}) S={S} bfloat16: max_abs_err {err:.3e}; "
+                f"{cut_text}, kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.6f} ({t['bound_by']})")
+            recs.append(rec)
+    return recs
+
+
+def family_parity(torch, dev) -> str:
+    """Each new arch in float32 through ``decode_parity`` (12 decode steps
+    card == CPU): ``FAM_PARITY_FULL`` at full width with 2 layers, the
+    others at their smoke configs."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    done = []
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        full = arch in FAM_PARITY_FULL
+        cfg = (get_config(arch).replace(n_layers=2) if full
+               else get_smoke_config(arch))
+        err = decode_parity(torch, dev, cfg.replace(dtype="float32",
+                                                    remat=False))
+        done.append(f"{arch} ({'full width' if full else 'smoke'}, d "
+                    f"{cfg.d_model}, {cfg.n_layers} layers): max |logit "
+                    f"diff| {err:.3e} in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return ("float32, 12 decode steps card == CPU (greedy tokens equal, "
+            "every cache within 1e-5): " + "; ".join(done))
+
+
+def family_serve(torch, dev) -> tuple:
+    """Each new arch at full width through ``serve_arch``, qwen1.5-110b and
+    deepseek-v2-236b cut in depth to ``FAM_SERVE_LAYERS``. For
+    qwen1.5-110b also ``prefill`` over the 160 tokens fed against the
+    loop's last logits (``decode_vs_prefill``), and for deepseek-v2-236b
+    the same in float32 at ``FAM_MLA_CHECK_LAYERS`` layers. Returns (the
+    launch counts summed, a record per arch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+
+    total = {k: 0 for k in build.LAUNCHES}
+    recs = []
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if arch in FAM_SERVE_LAYERS:
+            cfg = cfg.replace(n_layers=FAM_SERVE_LAYERS[arch])
+            say(f"serve {arch}: depth cut to {cfg.n_layers} of "
+                f"{get_config(arch).n_layers} layers (one card's 80 GB)")
+        rec, params, prompts, out = serve_arch(torch, dev, cfg)
+        for k, v in rec["launches"].items():
+            total[k] += v
+        if arch in FAM_SERVE_LAYERS and not cfg.is_moe:
+            rec["decode_vs_prefill"] = decode_vs_prefill(
+                torch, params, cfg, torch.cat([prompts, out.tokens], dim=1),
+                out.logits, 3e-2)
+            say(f"serve {arch}: bfloat16 {rec['decode_vs_prefill']}")
+        recs.append(rec)
+        del params, out, prompts
+        torch.cuda.empty_cache()
+        if arch in FAM_SERVE_LAYERS and cfg.is_moe:
+            cfg = cfg.replace(n_layers=FAM_MLA_CHECK_LAYERS, dtype="float32")
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = T.init(cfg, gen)
+            B, S = 8, 160
+            toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                 device=dev)
+            cache = T.init_cache(cfg, B, S)
+            for t in range(S):
+                logits, cache = T.decode_step(params, cfg,
+                                              {"token": toks[:, t]}, cache, t)
+            rec["decode_vs_prefill"] = decode_vs_prefill(
+                torch, params, cfg, toks, logits, 1e-4)
+            say(f"serve {arch}: float32 at {cfg.n_layers} layers, "
+                f"{rec['decode_vs_prefill']}")
+            del params, cache, logits
+            torch.cuda.empty_cache()
+    return total, recs
+
+
+def decode_vs_prefill(torch, params, cfg, fed, last, tol) -> str:
+    """The decode loop's last logits ``last`` against ``prefill`` over the
+    tokens it was fed, within ``tol`` relative and ``tol`` of max(1, the
+    largest |logit|) absolute (in bfloat16 the two paths round
+    activations in other places; float32 sums in other orders). Under
+    MoE at a capacity that drops nothing (cf E / K), as a decode step of
+    8 tokens drops none either."""
+    from repro_torch.models import transformer as T
+
+    if cfg.is_moe:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts
+                          / cfg.experts_per_token)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = T.prefill(params, cfg, {"tokens": fed})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scale = max(1.0, float(full.abs().max()))
+    torch.testing.assert_close(last, full, rtol=tol, atol=tol * scale)
+    return (f"decode's last logits == prefill over the {fed.shape[1]} "
+            f"tokens (max |diff| {float((last - full).abs().max()):.3e}, "
+            f"largest |logit| {scale:.2f}, tol {tol}; the forward "
+            f"{wall:.2f} s)")
+
+
+def family_smoke_train(torch, dev) -> str:
+    """deepseek-v2-236b's smoke config in float32 (MLA and 2 shared
+    experts; at full width one layer outgrows one card's training state):
+    ``loss_fn``'s value, aux and every gradient leaf on the card against
+    the CPU from the same CPU-drawn parameters and batch, within 1e-5 of
+    the loss and 1e-4 of each gradient entry and 1e-5 of each leaf's
+    norm (float32 summed in other orders; TF32 off), routing equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, value_and_grad
+
+    cfg = get_smoke_config("deepseek-v2-236b").replace(dtype="float32",
+                                                       remat=False)
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(token_stream(cfg.vocab_size, 4, 64, seed=1))
+    outs = []
+    for d, params in (("cpu", cpu), (dev, _tree_to(cpu, dev))):
+        (loss, aux), g = value_and_grad(lambda p, b: T.loss_fn(p, cfg, b),
+                                        params, to_device(batch, d),
+                                        has_aux=True)
+        outs.append((float(loss), {k: float(v) for k, v in aux.items()},
+                     [x.cpu() for x in leaves(g)]))
+    (l0, a0, g0), (l1, a1, g1) = outs
+    if abs(l1 - l0) > 1e-5 * max(1.0, abs(l0)) or a1["drop_frac"] != \
+            a0["drop_frac"] or abs(a1["lb_loss"] - a0["lb_loss"]) > 1e-5:
+        raise AssertionError(f"deepseek smoke train: card {l1} {a1} != CPU "
+                             f"{l0} {a0}")
+    worst = 0.0
+    for x, y in zip(g1, g0):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((x - y).norm() / y.norm().clamp(min=1e-30)))
+    if worst > 1e-5:
+        raise AssertionError(f"deepseek smoke train: gradient {worst} of "
+                             f"its norm from the CPU's")
+    return (f"{cfg.name} smoke float32: loss {l1:.6f} (CPU {l0:.6f}), "
+            f"lb_loss {a1['lb_loss']:.6f}, drop_frac {a1['drop_frac']:.4f}, "
+            f"{len(g1)} gradient leaves card == CPU (worst {worst:.2e} of a "
+            f"leaf's norm)")
+
+
+def phase_families(torch, dev, scratch: str) -> tuple:
+    """10: the other dense configs, MoE and MLA on the card. The kernels at
+    their new shapes (``decode_attention`` at each serve shape; the report
+    and ``sparse_aggregate`` at granite's ``experts_w1`` gradient row);
+    each arch card == CPU in float32; each served at full width in
+    bfloat16; granite-moe-3b-a800m trained at full width with its depth
+    cut to ``MOE_TRAIN_LAYERS`` through ``MOE_PATHS`` (the manual sync on
+    a world-size-1 NCCL group); deepseek-v2-236b's smoke training card ==
+    CPU; ``launch.train --smoke`` for granite and deepseek and ``launch.
+    serve --smoke`` for every new arch on the card. Returns (the phase's
+    launch counts, the kernels' records)."""
+    import contextlib
+    import io
+    import math
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsify import bucket_budgets
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, value_and_grad
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    da = family_da_check(torch, dev, gen)
+    say(f"families: {family_parity(torch, dev)}")
+    total, served = family_serve(torch, dev)
+
+    os.makedirs(scratch, exist_ok=True)
+    pg = os.path.join(scratch, "pg_file_families")
+    if os.path.exists(pg):
+        os.remove(pg)
+    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS,
+                                           remat=False)
+        t0 = time.perf_counter()
+        base = T.init(cfg, gen)
+        names = _leaf_names(base)
+        sizes = [p.numel() for p in flatten(base)[0]]
+        budgets = bucket_budgets(sizes, LM_TRAIN["r"], LM_TRAIN["k"])
+        stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
+                              LM_TRAIN["seq"], seed=1)
+        batches = [train.to_device(next(stream), dev)
+                   for _ in range(LM_STEPS)]
+        say(f"moe train: {cfg.name} at full width, depth cut to "
+            f"{cfg.n_layers} of {get_config(MOE_ARCH).n_layers} layers: "
+            f"{sum(sizes):,} params in {len(sizes)} leaves, bfloat16, init "
+            f"{time.perf_counter() - t0:.1f} s; buckets (d, r_b, k_b): "
+            + ", ".join(f"{n} ({d:,}, {r}, {k})"
+                        for n, d, (r, k) in zip(names, sizes, budgets)))
+        _, grads = value_and_grad(lambda p, b: T.loss_fn(p, cfg, b)[0],
+                                  base, batches[0])
+        i = names.index("layers/moe/experts_w1")
+        report = [lm_report_check(torch, flatten(grads)[0][i], budgets[i][0],
+                                  f"{MOE_ARCH} {names[i]} gradient")]
+        del grads
+        aggregate = lm_aggregate_check(torch, dev, gen, sizes[i],
+                                       budgets[i][1])
+        torch.cuda.empty_cache()
+        runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS)
+        for rec in runs.values():
+            for k, v in rec["launches"].items():
+                total[k] += v
+        del base, batches
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    say(f"families: {family_smoke_train(torch, dev)}")
+    clis = [["launch.train", "--arch", MOE_ARCH, "--smoke", "--steps", "20"],
+            ["launch.train", "--arch", "deepseek-v2-236b", "--smoke",
+             "--steps", "5"]]
+    clis += [["launch.serve", "--arch", a, "--smoke"] for a in FAMILIES]
+    for argv in clis:
+        mod = {"launch.train": train, "launch.serve": serve}[argv[0]]
+        buf = io.StringIO()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv[1:])
+        for k, v in build.LAUNCHES.items():
+            total[k] += v
+        if mod is train and not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"{' '.join(argv)}: losses "
+                                 f"{res['losses']}")
+        say(f"families: `{' '.join(argv)}` on the card in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + " | ".join(buf.getvalue().strip().splitlines()))
+    say(f"families: phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}")
+    return total, {"decode_attention": da, "threshold_topk_batch": report,
+                   "sparse_aggregate": aggregate, "serve": served,
+                   "moe_train": runs}
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -4795,14 +5192,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm, lm_recs = phase_lm_train(torch, dev, os.path.join(ROOT, "build",
                                                           "lm_smoke"))
+    torch.cuda.empty_cache()
+    fam, fam_recs = phase_families(torch, dev, os.path.join(
+        ROOT, "build", "lm_smoke"))
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
             faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
-            fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long, lm))
+            fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long, lm,
+            fam))
         if k["name"] in lm_recs:
             k["lm_buckets"] = lm_recs[k["name"]]
+        if k["name"] in fam_recs:
+            k["families"] = fam_recs[k["name"]]
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

@@ -2,7 +2,8 @@
 ``list_archs()``, with the arch ids of ``repro.configs``.
 
 Every id is listed; an arch whose config the port does not carry yet
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+(the SSM, hybrid, VLM and audio families) raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -22,16 +23,16 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id -> its config module, or, where the port does not carry it yet,
 # the ROADMAP item (queue 1) that brings it over
 _ARCHS = {
-    "granite-moe-3b-a800m": "item 16.2 (MoE)",
-    "gemma-2b": "item 16.1 (the other dense configs)",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "gemma-2b": "gemma_2b",
     "internlm2-1.8b": "internlm2_1_8b",
-    "deepseek-v2-236b": "item 16.3 (MLA)",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-780m": "item 16.4 (SSM)",
     "whisper-large-v3": "item 16.7 (audio)",
     "zamba2-2.7b": "item 16.5 (hybrid)",
     "pixtral-12b": "item 16.6 (VLM)",
-    "phi4-mini-3.8b": "item 16.1 (the other dense configs)",
-    "qwen1.5-110b": "item 16.1 (the other dense configs)",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen1.5-110b": "qwen1_5_110b",
     # the paper's own networks (FederatedEngine builds them directly)
     "mnist-mlp": "mnist_mlp",
     "cifar-cnn": "cifar_cnn",

@@ -5,8 +5,12 @@
       --batch 2 --prompt-len 8 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve   # internlm2-1.8b, card
 
-Weights are random from seed 0 (no checkpoints are in the repository).
-Without ``--device`` it runs on the card and raises without one.
+``--arch`` takes the dense ids (internlm2-1.8b, gemma-2b, phi4-mini-3.8b,
+qwen1.5-110b) and the MoE ones (granite-moe-3b-a800m; deepseek-v2-236b,
+whose attention is MLA); qwen1.5-110b and deepseek-v2-236b at full
+depth outgrow one 80 GB card. Weights are random from seed 0 (no
+checkpoints are in the repository). Without ``--device`` it runs on the
+card and raises without one.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ protocol as a data-parallel collective): the port of
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10   # card
 
 Without ``--smoke`` the arch runs at full size (internlm2-1.8b: 24
-layers, 1,699,842,048 parameters in bfloat16). Weights are random from
+layers, 1,699,842,048 parameters in bfloat16). ``--arch`` takes the dense
+and MoE ids; an MoE arch's loss carries 0.01 * its load-balance term. Weights are random from
 seed 0, the tokens ``data.token_stream``'s from seed 1. Without
 ``--device`` it runs on the card and raises without one. ``main(argv)``
 returns the losses of every step and the summed wire bytes.

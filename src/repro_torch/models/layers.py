@@ -97,8 +97,11 @@ def act_fn(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def mlp_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_params(gen: torch.Generator, cfg, lead: tuple = (),
+               d_ff: int | None = None) -> dict:
+    """A GLU (gate w1, up w3, down w2) or plain MLP of width ``d_ff``
+    (``cfg.d_ff`` when None or 0, as in the reference)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dtype = dtype_of(cfg)
     if cfg.mlp_type == "glu":
         return {

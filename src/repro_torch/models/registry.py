@@ -22,7 +22,8 @@ class ModelFns:
 
 
 def get_model(cfg) -> ModelFns:
-    """The dense decoder's functions; other families raise (see
+    """The decoder's functions for the dense and MoE families (GQA or MLA
+    attention); the SSM, hybrid, VLM and audio families raise (see
     ``transformer.require_ported``)."""
     T.require_ported(cfg)
     return ModelFns(T.init, T.loss_fn, T.prefill, T.decode_step,

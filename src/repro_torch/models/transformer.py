@@ -1,7 +1,10 @@
-"""The LM for the dense decoder family: the port of the dense paths of
+"""The decoder-only LMs: the port of the dense and MoE families of
 ``repro.models.transformer`` (parameter init, the training loss with
-its chunked cross entropy, the prefill forward, the KV cache and the
-single-token decode step).
+its chunked cross entropy and MoE's load-balance term, the prefill
+forward, the KV or latent cache and the single-token decode step).
+A block's attention is GQA (``layers``) or MLA (``mla``, under
+``cfg.use_mla``), and its FFN an MLP or a mixture of experts (``moe``,
+under ``cfg.is_moe``).
 
 API (see registry.py):
   init(cfg, generator, device=None)             -> params
@@ -14,10 +17,10 @@ Parameters keep the reference's tree: layer leaves stacked on a leading
 ``n_layers`` axis, so ``weights.params_from_jax`` carries them across
 leaf for leaf. Layers run in a Python loop. The loss's gradient is
 plain autograd, as the reference's is plain autodiff (nothing in its
-``models/`` has a custom VJP). ``decode_step`` writes the new K/V rows
-into the cache in place and returns the same cache. Families other than
-``dense`` (MoE, MLA, SSM, hybrid, VLM, audio) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``models/`` has a custom VJP). ``decode_step`` writes the new K/V (or
+latent) rows into the cache in place and returns the same cache. The
+SSM, hybrid, VLM and audio families raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
-# family (or variant) -> the ROADMAP item (queue 1) that ports it
+# family -> the ROADMAP item (queue 1) that ports it
 _UNPORTED = {
-    "moe": "item 16.2 (MoE)",
-    "mla": "item 16.3 (MLA)",
     "ssm": "item 16.4 (SSM)",
     "hybrid": "item 16.5 (hybrid)",
     "vlm": "item 16.6 (VLM)",
@@ -39,13 +42,13 @@ _UNPORTED = {
 
 
 def require_ported(cfg) -> None:
-    """Raise unless ``cfg`` is a dense decoder the port serves."""
-    kind = ("mla" if cfg.use_mla else "moe" if cfg.is_moe else cfg.family)
+    """Raise unless ``cfg`` is a dense or MoE decoder the port serves."""
+    kind = cfg.family
     if kind in _UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {kind} family is not ported to repro_torch "
             f"yet: ROADMAP queue 1, {_UNPORTED[kind]}")
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not an LM "
                          f"(the paper nets live in models/paper_nets.py)")
 
@@ -64,10 +67,15 @@ def _layer(tree: dict, i: int) -> dict:
 def _block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
     """One decoder block, or ``lead`` of them stacked."""
     dev = gen.device
-    return {"ln1": L.norm_params(cfg, lead, dev),
-            "ln2": L.norm_params(cfg, lead, dev),
-            "attn": L.attention_params(gen, cfg, lead),
-            "mlp": L.mlp_params(gen, cfg, lead)}
+    p = {"ln1": L.norm_params(cfg, lead, dev),
+         "ln2": L.norm_params(cfg, lead, dev),
+         "attn": (MLA.mla_params(gen, cfg, lead) if cfg.use_mla
+                  else L.attention_params(gen, cfg, lead))}
+    if cfg.is_moe:
+        p["moe"] = MOE.moe_params(gen, cfg, lead)
+    else:
+        p["mlp"] = L.mlp_params(gen, cfg, lead)
+    return p
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -104,6 +112,8 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
 
 
 def _attn_seq(p, cfg, x, positions):
+    if cfg.use_mla:
+        return MLA.mla_prefill(p, cfg, x, positions)[0]
     B, S, _ = x.shape
     q, k, v = L.qkv(p, cfg, x)
     q = L.rope(q, positions, cfg.rope_theta)
@@ -113,27 +123,40 @@ def _attn_seq(p, cfg, x, positions):
 
 
 def _dense_block_seq(p, cfg, x, positions):
+    """One block -> (x, aux): MoE's aux, or {} after an MLP."""
     h = L.apply_norm(p["ln1"], cfg, x)
     x = x + _attn_seq(p["attn"], cfg, h, positions)
     h = L.apply_norm(p["ln2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h)
+    if cfg.is_moe:
+        y, aux = MOE.apply_moe(p["moe"], cfg, h)
+        return x + y, aux
+    return x + L.apply_mlp(p["mlp"], cfg, h), {}
 
 
 def _backbone(params, cfg, x, positions):
-    """The dense decoder stack over x: (B, S, d). Under ``cfg.remat`` each
-    layer's activations are recomputed in the backward pass
-    (``torch.utils.checkpoint``), which changes memory and never values.
-    PyTorch has no policy that keeps the matmuls' outputs, so the
-    reference's ``remat_policy='save_dots'`` recomputes the whole layer
-    too, as ``'full'`` does."""
+    """The decoder stack over x: (B, S, d) -> (hidden, aux): ``lb_loss``
+    summed over the layers and divided by their count, ``drop_frac`` their
+    mean under MoE (else 0), as the reference's scan carries them. Under
+    ``cfg.remat`` each layer's activations (its aux with them) are
+    recomputed in the backward pass (``torch.utils.checkpoint``), which
+    changes memory and never values. PyTorch has no policy that keeps the
+    matmuls' outputs, so the reference's ``remat_policy='save_dots'``
+    recomputes the whole layer too, as ``'full'`` does."""
+    auxes = []
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_dense_block_seq, p, cfg, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_dense_block_seq, p, cfg, x, positions,
+                                use_reentrant=False)
         else:
-            x = _dense_block_seq(p, cfg, x, positions)
-    return x
+            x, aux = _dense_block_seq(p, cfg, x, positions)
+        auxes.append(aux)
+    if not cfg.is_moe:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, {"lb_loss": zero, "drop_frac": zero}
+    lb = sum(a["lb_loss"] for a in auxes)     # in layer order, as the scan
+    drop = torch.stack([a["drop_frac"] for a in auxes]).mean()
+    return x, {"lb_loss": lb / cfg.n_layers, "drop_frac": drop}
 
 
 def _unembed_w(params, cfg):
@@ -175,17 +198,18 @@ def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
 
 def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
     """batch: {"tokens", "labels"} (B, S) ints -> (mean next-token cross
-    entropy, aux). aux holds the reference's MoE terms, zero for the dense
-    family."""
+    entropy, plus 0.01 * lb_loss under MoE; aux). aux holds the
+    reference's MoE terms (``_backbone``), zero for an MLP model."""
     require_ported(cfg)
     x = params["embed"]["w"][batch["tokens"].to(torch.int64)]
-    h = _backbone(params, cfg, x,
-                  torch.arange(x.shape[1], device=x.device))
+    h, aux = _backbone(params, cfg, x,
+                       torch.arange(x.shape[1], device=x.device))
     h = L.apply_norm(params["norm_f"], cfg, h)
     loss = chunked_xent(h, _unembed_w(params, cfg), batch["labels"],
                         cfg.vocab_size)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return loss, {"lb_loss": zero, "drop_frac": zero}
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux["lb_loss"]
+    return loss, aux
 
 
 def _logits(params, cfg, h):
@@ -199,7 +223,8 @@ def prefill(params, cfg, inputs) -> torch.Tensor:
     require_ported(cfg)
     tokens = inputs["tokens"].to(torch.int64)
     x = params["embed"]["w"][tokens]
-    h = _backbone(params, cfg, x, torch.arange(x.shape[1], device=x.device))
+    h, _ = _backbone(params, cfg, x,
+                     torch.arange(x.shape[1], device=x.device))
     h = L.apply_norm(params["norm_f"], cfg, h)
     return _logits(params, cfg, h[:, -1])
 
@@ -212,17 +237,25 @@ def prefill(params, cfg, inputs) -> torch.Tensor:
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zero K and V caches (n_layers, batch, S, G, head_dim) in the model
     dtype on ``device`` (None means the card); S = min(max_len, window)
-    under a sliding window, else max_len."""
+    under a sliding window, else max_len. Under MLA the latent caches
+    instead: c_kv (n_layers, batch, max_len, kv_lora_rank) and k_rope
+    (n_layers, batch, max_len, 64)."""
     require_ported(cfg)
     dev = resolve(device)
+    dtype = L.dtype_of(cfg)
+    if cfg.use_mla:
+        lead = (cfg.n_layers, batch, max_len)
+        return {"c_kv": torch.zeros((*lead, cfg.kv_lora_rank), dtype=dtype,
+                                    device=dev),
+                "k_rope": torch.zeros((*lead, MLA.ROPE_DIM), dtype=dtype,
+                                      device=dev)}
     S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim_)
-    dtype = L.dtype_of(cfg)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _attn_decode(p, cfg, x, k_cache, v_cache, pos: int, cache_len: int):
+def _attn_decode(p, cfg, x, k_cache, v_cache, pos: int):
     """x: (B,1,d). Writes this token's K/V into the (B, S, G, hd) caches
     in place, at slot pos % S under a sliding window (a ring buffer),
     else at pos (clamped to the last slot, as the reference's
@@ -234,6 +267,7 @@ def _attn_decode(p, cfg, x, k_cache, v_cache, pos: int, cache_len: int):
     q = L.rope(q, posv, cfg.rope_theta)
     k = L.rope(k, posv, cfg.rope_theta)
     slot = pos % S_cache if cfg.sliding_window else min(pos, S_cache - 1)
+    cache_len = min(pos + 1, S_cache)          # a host int: no device sync
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
     o = L.decode_attention(q[:, 0], k_cache, v_cache, cache_len)
@@ -246,14 +280,17 @@ def decode_step(params, cfg, inputs, cache, pos: int):
     cache updated in place."""
     require_ported(cfg)
     x = params["embed"]["w"][inputs["token"].to(torch.int64)][:, None, :]
-    S_cache = cache["k"].shape[2]
-    cache_len = min(pos + 1, S_cache)          # a host int: no device sync
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         a = L.apply_norm(p["ln1"], cfg, x)
-        x = x + _attn_decode(p["attn"], cfg, a, cache["k"][i],
-                             cache["v"][i], pos, cache_len)
+        if cfg.use_mla:
+            x = x + MLA.mla_decode(p["attn"], cfg, a, cache["c_kv"][i],
+                                   cache["k_rope"][i], pos)
+        else:
+            x = x + _attn_decode(p["attn"], cfg, a, cache["k"][i],
+                                 cache["v"][i], pos)
         a = L.apply_norm(p["ln2"], cfg, x)
-        x = x + L.apply_mlp(p["mlp"], cfg, a)
+        x = x + (MOE.apply_moe(p["moe"], cfg, a)[0] if cfg.is_moe
+                 else L.apply_mlp(p["mlp"], cfg, a))
     x = L.apply_norm(params["norm_f"], cfg, x)
     return _logits(params, cfg, x[:, 0]), cache

@@ -58,7 +58,7 @@ def value_and_grad(fn, tree, *args, has_aux: bool = False):
     autograd on detached copies of the leaves (the caller's tensors are
     not touched). With ``has_aux`` fn returns (value, aux) and the first
     result is that pair. A leaf the value does not depend on gets a zero
-    gradient. The value comes back detached."""
+    gradient. The value, and the tensors of aux, come back detached."""
     flat, node = flatten(tree)
     leaves_ = [l.detach().requires_grad_(True) for l in flat]
     out = fn(unflatten(node, leaves_), *args)
@@ -66,4 +66,7 @@ def value_and_grad(fn, tree, *args, has_aux: bool = False):
     grads = torch.autograd.grad(value, leaves_, allow_unused=True,
                                 materialize_grads=True)
     value = value.detach()
-    return ((value, out[1]) if has_aux else value), unflatten(node, grads)
+    if has_aux:
+        value = (value, tree_map(
+            lambda a: a.detach() if torch.is_tensor(a) else a, out[1]))
+    return value, unflatten(node, grads)

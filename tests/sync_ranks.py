@@ -12,8 +12,15 @@ IN holds the gradient leaves of each rank (``g{rank}_{leaf:02d}``),
 sorted keys give both packages the leaves' order. The torch mode writes
 ``torch_rank{q}.npz`` for each rank, the jax mode ``jax.npz``: for every
 scenario and call the synced leaves, the age leaves and the stats.
+
+A test module starts both with :func:`start` from its gradient leaves,
+gathers them with :func:`collect`, and holds them to each other, to the
+reference and to the numpy oracle of the union semantics with
+:func:`check_ranks_agree`, :func:`check_identical_match_reference` and
+:func:`check_distinct_match_oracle`.
 """
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -148,6 +155,143 @@ def run_jax(path_in, out_dir):
                 synced, ages, stats = sync(g, ages, active=act)
             _flat_out(out, name, call, synced, ages, stats)
     np.savez(os.path.join(out_dir, "jax.npz"), **out)
+
+
+def start(leaves, d, r: int, k: int) -> list:
+    """Both modes in the background on ``leaves`` (rank 0's gradient
+    leaves, float32 numpy arrays; rank 1's are rank 0's reversed and
+    scaled by 0.7, the distinct scenarios), writing into the directory
+    ``d`` (a ``pathlib.Path``). Returns the two processes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    g1 = [(np.ascontiguousarray(l.reshape(-1)[::-1]) * np.float32(0.7))
+          .reshape(l.shape) for l in leaves]
+    arrays = {f"g{q}_{i:02d}": l for q, gs in enumerate((leaves, g1))
+              for i, l in enumerate(gs)}
+    np.savez(d / "in.npz", r=r, k=k, **arrays)
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "..", "src"),
+           "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(here, "sync_ranks.py"), mode,
+         str(d / "in.npz"), str(d)], env=dict(env, **extra),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode, extra in (
+            ("torch", {}),
+            ("jax", {"XLA_FLAGS": "--xla_force_host_platform_device_count=2",
+                     "JAX_PLATFORMS": "cpu"}))]
+
+
+def collect(d, procs) -> dict:
+    """Wait for :func:`start`'s processes; their outputs, the gradients,
+    r and k."""
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    grads, r, k = load(d / "in.npz")
+    return dict(torch=[dict(np.load(d / f"torch_rank{q}.npz"))
+                       for q in (0, 1)],
+                jax=dict(np.load(d / "jax.npz")), grads=grads, r=r, k=k)
+
+
+def check_ranks_agree(runs):
+    """Both ranks hold the same synced values, ages and stats."""
+    a, b = runs["torch"]
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def check_identical_match_reference(runs):
+    """Identical gradients: rank 0 == the reference's 2-device mesh, every
+    scenario, both calls, exactly."""
+    got, want = runs["torch"][0], runs["jax"]
+    assert want and set(want) <= set(got)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def _bf16(x):
+    import ml_dtypes
+    return x.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+
+def _oracle_pick(g, age, method, r, k):
+    """One rank's picks in numpy: top-r by |g| (stable, ties to the lower
+    index), then the k oldest of them (stable, ties to the larger
+    magnitude); top_k the k largest |g|."""
+    order = np.argsort(-np.abs(g), kind="stable")
+    if method == "top_k":
+        return order[:k]
+    cand = order[:min(r, g.size)]
+    sel = np.argsort(-age[cand].astype(np.int64), kind="stable")[:k]
+    return cand[sel]
+
+
+def oracle(grads, scen, call, ages, r, k):
+    """The union semantics in numpy for one call: each sending rank's
+    picks (or its whole bf16 gradient, dense), the gate, the active
+    count; (synced, new ages, stats)."""
+    from repro.core.sparsify import bucket_budgets
+    name, method, cand, validate, actives, bk, distinct = scen
+    act = actives[call] or (True, True)
+    gs = [rank_grads(grads, q, distinct, call, validate) for q in (0, 1)]
+    up = [act[q] and (not validate or all(
+        np.isfinite(v).all() and np.abs(v).max() <= 1e4
+        for v in gs[q].values())) for q in (0, 1)]
+    n_act = np.float32(max(sum(up), 1) if actives[call] or validate else 2)
+    keys = sorted(gs[0])
+    budgets = bucket_budgets([gs[0][n].size for n in keys], r, k)
+    synced, new_ages, wire = {}, {}, 0
+    for n, (r_b, k_b) in zip(keys, budgets):
+        flat = [gs[q][n].reshape(-1).astype(np.float32) for q in (0, 1)]
+        age = ages[n].reshape(-1)
+        if method == "dense":
+            w = sum(np.where(up[q], _bf16(flat[q]), np.float32(0))
+                    for q in (0, 1)).astype(np.float32)
+            synced[n] = (w / n_act).reshape(gs[0][n].shape)
+            new_ages[n] = ages[n]
+            wire += flat[0].size * 2
+            continue
+        dense = np.zeros(flat[0].size, np.float32)
+        hit = np.zeros(flat[0].size, bool)
+        for q in (0, 1):
+            if not up[q]:
+                continue
+            idx = _oracle_pick(flat[q], age, method, r_b, k_b)
+            np.add.at(dense, idx, _bf16(flat[q][idx]) / n_act)
+            hit[idx] = True
+        synced[n] = dense.reshape(gs[0][n].shape)
+        new_ages[n] = np.where(hit, 0, age + 1).astype(np.int32).reshape(
+            ages[n].shape)
+        wire += min(k_b, flat[0].size) * 6
+    senders = sum(act)
+    stats = {"wire_bytes_per_shard": wire, "active_shards": sum(up),
+             "wire_bytes_total": wire * senders,
+             "quarantined_shards": senders - sum(up)}
+    return synced, new_ages, stats
+
+
+def check_distinct_match_oracle(runs):
+    """Distinct gradients (rank 1's are rank 0's reversed, x0.7; under the
+    gate rank 1's second call is out of band): rank 0 == the numpy
+    oracle, every distinct scenario, exactly."""
+    got = runs["torch"][0]
+    grads, r, k = runs["grads"], runs["r"], runs["k"]
+    scens = [s for s in SCENARIOS if s[-1]]
+    assert scens
+    for scen in scens:
+        name = scen[0]
+        ages = {n: np.zeros(v.shape, np.int32) for n, v in grads[0].items()}
+        for call in range(len(scen[4])):
+            synced, ages, stats = oracle(grads, scen, call, ages, r, k)
+            for n in synced:
+                np.testing.assert_array_equal(
+                    got[f"{name}/{call}/synced/{n}"], synced[n],
+                    err_msg=f"{name} {call} {n}")
+                np.testing.assert_array_equal(
+                    got[f"{name}/{call}/ages/{n}"], ages[n],
+                    err_msg=f"{name} {call} {n}")
+            for s_, v in stats.items():
+                assert got[f"{name}/{call}/stats/{s_}"] == v, (name, call, s_)
 
 
 if __name__ == "__main__":

@@ -246,7 +246,7 @@ def test_package_imports_no_jax():
                                          os.path.dirname(root)})
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 63
+    assert len(mods) >= 70
     assert {"repro_torch.configs.internlm2_1_8b", "repro_torch.launch.serve",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.registry",
@@ -261,7 +261,13 @@ def test_package_imports_no_jax():
             "repro_torch.dist", "repro_torch.dist.sparse_sync",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
             "repro_torch.launch.train",
-            "repro_torch.examples.distributed_ragek_lm"} <= mods
+            "repro_torch.examples.distributed_ragek_lm",
+            "repro_torch.models.moe", "repro_torch.models.mla",
+            "repro_torch.configs.gemma_2b",
+            "repro_torch.configs.phi4_mini_3_8b",
+            "repro_torch.configs.qwen1_5_110b",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.deepseek_v2_236b"} <= mods
 
 
 def test_no_silent_cpu(fig3_data, monkeypatch):

@@ -23,10 +23,6 @@ exactly.
   ``XLA_FLAGS=--xla_force_host_platform_device_count=2``), and distinct
   gradients against a numpy oracle of the union semantics.
 """
-import os
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 from torch_threads import share_cores
@@ -60,8 +56,6 @@ import sync_ranks
 
 ARCH = "internlm2-1.8b"
 R, K = 512, 64
-HERE = os.path.dirname(__file__)
-SRC = os.path.join(HERE, "..", "src")
 
 
 def _np(x):
@@ -98,34 +92,13 @@ def lm(tmp_path_factory):
     grads = jax.jit(jax.grad(lambda p, b: JT.loss_fn(p, cfg, b)[0]))(
         params, jb)
     d = tmp_path_factory.mktemp("ranks")
-    procs = _start_ranks(grads, d)
+    procs = sync_ranks.start(
+        [np.asarray(l) for l in jax.tree_util.tree_leaves(grads)], d, R, K)
     yield dict(cfg=cfg, params=params, grads=grads, ranks=(d, procs))
     for p in procs:
         if p.poll() is None:
             p.kill()
         p.communicate()
-
-
-def _start_ranks(grads, d):
-    """Rank 1's gradients are rank 0's reversed and scaled by 0.7 (the
-    distinct scenarios); the port's two gloo ranks and the reference's
-    2-device mesh, each a subprocess writing into ``d``."""
-    g0 = [np.asarray(l) for l in jax.tree_util.tree_leaves(grads)]
-    g1 = [(np.ascontiguousarray(l.reshape(-1)[::-1]) * np.float32(0.7))
-          .reshape(l.shape) for l in g0]
-    arrays = {f"g{q}_{i:02d}": l for q, gs in enumerate((g0, g1))
-              for i, l in enumerate(gs)}
-    np.savez(d / "in.npz", r=R, k=K, **arrays)
-    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC),
-           "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "sync_ranks.py"), mode,
-         str(d / "in.npz"), str(d)], env=dict(env, **extra),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for mode, extra in (
-            ("torch", {}),
-            ("jax", {"XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-                     "JAX_PLATFORMS": "cpu"}))]
 
 
 def _small(grads):
@@ -420,93 +393,19 @@ def test_no_silent_cpu(monkeypatch):
 def two_ranks(lm):
     """The scenarios of ``tests/sync_ranks.py`` on two gloo ranks and on
     the reference's 2-device CPU mesh (started by ``lm``)."""
-    d, procs = lm["ranks"]
-    for p in procs:
-        out, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err[-3000:]
-    grads, r, k = sync_ranks.load(d / "in.npz")
-    return dict(torch=[dict(np.load(d / f"torch_rank{q}.npz"))
-                       for q in (0, 1)],
-                jax=dict(np.load(d / "jax.npz")), grads=grads, r=r, k=k)
+    return sync_ranks.collect(*lm["ranks"])
 
 
 def test_two_ranks_agree(two_ranks):
     """Both ranks hold the same synced values, ages and stats."""
-    a, b = two_ranks["torch"]
-    assert a.keys() == b.keys()
-    for key in a:
-        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    sync_ranks.check_ranks_agree(two_ranks)
 
 
 def test_two_ranks_identical_grads_match_reference(two_ranks):
     """Identical gradients on both ranks against the reference's manual
     sync on a 2-device mesh (its grads replicated over the data axis),
     every scenario, both calls: synced values, ages, stats exactly."""
-    got, want = two_ranks["torch"][0], two_ranks["jax"]
-    assert want and set(want) <= set(got)
-    for key in want:
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-
-
-def _bf16(x):
-    import ml_dtypes
-    return x.astype(ml_dtypes.bfloat16).astype(np.float32)
-
-
-def _oracle_pick(g, age, method, r, k):
-    """One rank's picks in numpy: top-r by |g| (stable, ties to the lower
-    index), then the k oldest of them (stable, ties to the larger
-    magnitude); top_k the k largest |g|."""
-    order = np.argsort(-np.abs(g), kind="stable")
-    if method == "top_k":
-        return order[:k]
-    cand = order[:min(r, g.size)]
-    sel = np.argsort(-age[cand].astype(np.int64), kind="stable")[:k]
-    return cand[sel]
-
-
-def _oracle(grads, scen, call, ages, r, k):
-    """The union semantics in numpy for one call: each sending rank's
-    picks (or its whole bf16 gradient, dense), the gate, the active
-    count; (synced, new ages, stats)."""
-    name, method, cand, validate, actives, bk, distinct = scen
-    act = actives[call] or (True, True)
-    gs = [sync_ranks.rank_grads(grads, q, distinct, call, validate)
-          for q in (0, 1)]
-    up = [act[q] and (not validate or all(
-        np.isfinite(v).all() and np.abs(v).max() <= 1e4
-        for v in gs[q].values())) for q in (0, 1)]
-    n_act = np.float32(max(sum(up), 1) if actives[call] or validate else 2)
-    keys = sorted(gs[0])
-    budgets = j_bucket_budgets([gs[0][n].size for n in keys], r, k)
-    synced, new_ages, wire = {}, {}, 0
-    for n, (r_b, k_b) in zip(keys, budgets):
-        flat = [gs[q][n].reshape(-1).astype(np.float32) for q in (0, 1)]
-        age = ages[n].reshape(-1)
-        if method == "dense":
-            w = sum(np.where(up[q], _bf16(flat[q]), np.float32(0))
-                    for q in (0, 1)).astype(np.float32)
-            synced[n] = (w / n_act).reshape(gs[0][n].shape)
-            new_ages[n] = ages[n]
-            wire += flat[0].size * 2
-            continue
-        dense = np.zeros(flat[0].size, np.float32)
-        hit = np.zeros(flat[0].size, bool)
-        for q in (0, 1):
-            if not up[q]:
-                continue
-            idx = _oracle_pick(flat[q], age, method, r_b, k_b)
-            np.add.at(dense, idx, _bf16(flat[q][idx]) / n_act)
-            hit[idx] = True
-        synced[n] = dense.reshape(gs[0][n].shape)
-        new_ages[n] = np.where(hit, 0, age + 1).astype(np.int32).reshape(
-            ages[n].shape)
-        wire += min(k_b, flat[0].size) * 6
-    senders = sum(act)
-    stats = {"wire_bytes_per_shard": wire, "active_shards": sum(up),
-             "wire_bytes_total": wire * senders,
-             "quarantined_shards": senders - sum(up)}
-    return synced, new_ages, stats
+    sync_ranks.check_identical_match_reference(two_ranks)
 
 
 def test_two_ranks_distinct_grads_match_oracle(two_ranks):
@@ -514,24 +413,7 @@ def test_two_ranks_distinct_grads_match_oracle(two_ranks):
     gate rank 1's second call is out of band): the union of both ranks'
     picks, divided by the active count, the hit-based ages and the
     stats, against the numpy oracle, exactly."""
-    got = two_ranks["torch"][0]
-    grads, r, k = two_ranks["grads"], two_ranks["r"], two_ranks["k"]
-    scens = [s for s in sync_ranks.SCENARIOS if s[-1]]
-    assert scens
-    for scen in scens:
-        name = scen[0]
-        ages = {n: np.zeros(v.shape, np.int32) for n, v in grads[0].items()}
-        for call in range(len(scen[4])):
-            synced, ages, stats = _oracle(grads, scen, call, ages, r, k)
-            for n in synced:
-                np.testing.assert_array_equal(
-                    got[f"{name}/{call}/synced/{n}"], synced[n],
-                    err_msg=f"{name} {call} {n}")
-                np.testing.assert_array_equal(
-                    got[f"{name}/{call}/ages/{n}"], ages[n],
-                    err_msg=f"{name} {call} {n}")
-            for s, v in stats.items():
-                assert got[f"{name}/{call}/stats/{s}"] == v, (name, call, s)
+    sync_ranks.check_distinct_match_oracle(two_ranks)
 
 
 # ---------------------------------------------------------------------------

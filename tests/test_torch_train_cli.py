@@ -30,14 +30,11 @@ import jax
 import jax.numpy as jnp
 
 from repro.checkpoint import load_checkpoint as j_load_checkpoint
-from repro.configs import get_smoke_config as j_smoke_config
 from repro.core.sparsify import bucket_budgets
-from repro.data.pipeline import token_stream as j_token_stream
 from repro.dist import sparse_sync as JS
-from repro.launch.mesh import make_host_mesh as j_mesh
-from repro.models import transformer as JT
 from repro.optim import optimizers as JO
 
+import lm_parity as P
 from repro_torch import tree
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.dist import sparse_sync as TS
@@ -52,38 +49,6 @@ STEPS = 6
 LOSS_TOL = 2e-3
 # internlm2-1.8b at full width: its 11 leaves, in tree_leaves order
 FULL_PARAMS = 1_699_842_048
-
-
-def _reference_losses(params, method, steps, **kw):
-    """The reference's CLI loop (its ``launch/train.py`` body) from the
-    given parameters: per-step losses and the summed wire bytes."""
-    cfg = j_smoke_config(ARCH).replace(remat=False)
-    opt = JO.adam(1e-3)
-    step = jax.jit(JS.make_sync_train_step(
-        lambda p, b: JT.loss_fn(p, cfg, b)[0], opt, j_mesh(1, 1),
-        method=method, r=2048, k=256))
-    state, ages = opt.init(params), JS.init_age_state(params)
-    stream = j_token_stream(cfg.vocab_size, 8, 128, seed=1)
-    losses, wire = [], 0
-    for _ in range(steps):
-        batch = {k: jnp.asarray(v) for k, v in next(stream).items()}
-        params, state, ages, loss, stats = step(params, state, ages, batch)
-        losses.append(float(loss))
-        wire += int(stats["wire_bytes_per_shard"])
-    return losses, wire
-
-
-def _to_jax(params):
-    """The port's parameters as the reference's (bfloat16 through its
-    16-bit patterns)."""
-    def one(t):
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-            return jnp.asarray(t.view(torch.int16).numpy().view(
-                ml_dtypes.bfloat16))
-        return jnp.asarray(t.numpy())
-    return {k: _to_jax(v) if isinstance(v, dict) else one(v)
-            for k, v in params.items()}
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +67,8 @@ def test_train_cli_matches_reference_loop(capsys, port_init, method):
                      r"wire=(\d+\.\d\d)MiB/shard$")
     logged = [pat.match(l) for l in lines[1:]]
     assert all(logged) and [int(m.group(1)) for m in logged] == [2, 4, 6]
-    want, wire = _reference_losses(_to_jax(port_init), method, STEPS)
+    want, wire = P.reference_cli_losses(ARCH, P.to_jax(port_init), method,
+                                        STEPS)
     np.testing.assert_allclose(out["losses"], want, atol=LOSS_TOL, rtol=0)
     for m in logged:
         i = int(m.group(1))
@@ -122,7 +88,7 @@ def test_train_cli_defaults_to_the_card(monkeypatch):
 
 def test_train_cli_rejects_unported_arch(capsys):
     with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu"])
+        train.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--method", "top_k", "--device", "cpu"])
 
@@ -136,10 +102,10 @@ def test_train_ckpt_read_by_reference(tmp_path, capsys):
     assert capsys.readouterr().out.strip().endswith(
         f"saved checkpoint to {tmp_path}")
     like = jax.tree_util.tree_map(
-        lambda t: np.zeros(t.shape, np.float32), _to_jax(out["params"]))
+        lambda t: np.zeros(t.shape, np.float32), P.to_jax(out["params"]))
     got, meta = j_load_checkpoint(str(tmp_path), like)
     assert meta["step"] == 2
-    want = _to_jax(out["params"])
+    want = P.to_jax(out["params"])
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         assert np.asarray(a).dtype == np.asarray(b).dtype
