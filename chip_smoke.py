@@ -188,7 +188,24 @@ the last line:
    gate on a world-size-1 NCCL group, dense) with each step's lb_loss,
    drop_frac and launches, ms, busy share and peak; deepseek's smoke
    training card == CPU; ``launch.train --smoke`` for granite and
-   deepseek and ``launch.serve --smoke`` for each new arch on the card.
+   deepseek and ``launch.serve --smoke`` for each new arch on the card;
+11. ssm and hybrid (after 10): mamba2-780m (48 Mamba2 layers) and
+   zamba2-2.7b (54, with one shared attention block after every 6, head
+   dim 80): ``decode_attention`` at D 80 at zamba2's serve shape (B 8,
+   H = G = 32) over 160, 4,096 and 8,192 positions in bfloat16 and
+   float32 == its plain version, bitwise repeatable, beside SDPA and the
+   bytes bound; each arch card == CPU in float32 at full width (mamba2
+   at 2 layers, zamba2 at 6: one group and one shared-block application)
+   over 12 decode steps, the prefill over the fed tokens, and decode ==
+   prefill on the card; each served at full width and depth in bfloat16
+   through ``generate`` (batch 8, prompt 128, 32 tokens;
+   ``decode_attention`` once per shared-block application per step, none
+   for mamba2) with the top device kernels of a decode step; each
+   trained at full width in bfloat16 (mamba2 at full depth, zamba2 cut
+   to ``HYBRID_TRAIN_LAYERS`` = 30 layers) through ``MOE_PATHS``, after the
+   report and ``sparse_aggregate`` at its largest bucket's gradient ==
+   their plain versions; ``launch.serve --smoke`` and ``launch.train
+   --smoke`` for both archs on the card.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -2528,12 +2545,13 @@ def decode_attention_check(torch, dev, gen):
                 tile_bytes=main_cut["tile_bytes"])
 
 
-def decode_parity(torch, dev, cfg) -> float:
+def decode_parity(torch, dev, cfg, cache_tol: float = 1e-5) -> float:
     """``cfg`` (float32) from CPU-drawn seed-0 parameters: 8 prompt and 4
     generated decode steps on the card and on the CPU, both fed the CPU's
-    tokens. Logits within rtol=atol=1e-4 and every cache within 1e-5
-    (cuBLAS and the CPU's BLAS sum the float32 products in other orders;
-    TF32 off), the greedy tokens equal. Returns the largest |logit diff|."""
+    tokens. Logits within rtol=atol=1e-4 and every cache within
+    ``cache_tol`` (cuBLAS and the CPU's BLAS sum the float32 products in
+    other orders; TF32 off), the greedy tokens equal. Returns the largest
+    |logit diff|."""
     from repro_torch.models import transformer as T
 
     cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -2556,7 +2574,7 @@ def decode_parity(torch, dev, cfg) -> float:
         err = max(err, float((lg.cpu() - lc).abs().max()))
     for name in caches[0]:
         torch.testing.assert_close(caches[1][name].cpu(), caches[0][name],
-                                   rtol=1e-5, atol=1e-5)
+                                   rtol=cache_tol, atol=cache_tol)
     return err
 
 
@@ -2624,12 +2642,23 @@ def phase_smoke_serve(torch, dev):
     return launches
 
 
+def attention_layers(cfg) -> int:
+    """``decode_attention`` launches a decode step: one per GQA layer, one
+    per application of the hybrid's shared block, none under MLA or in an
+    attention-free SSM."""
+    if cfg.use_mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
 def serve_arch(torch, dev, cfg) -> tuple:
     """``cfg`` in bfloat16 with random weights from seed 0 on the card,
     served through ``launch.serve.generate`` (batch 8, prompt 128, 32
     generated tokens): finite logits of the right shape;
-    ``decode_attention`` once per layer per step and no other kernel
-    (none under MLA). Prints and returns (a record: prefill s, decode
+    ``decode_attention`` ``attention_layers(cfg)`` times a step and no
+    other kernel. Prints and returns (a record: prefill s, decode
     tokens/s, ms a step, the allocator's peak, the cache's bytes, the
     launches; the parameters, the prompts and the ``Generation``)."""
     from repro_torch.kernels import build
@@ -2651,7 +2680,7 @@ def serve_arch(torch, dev, cfg) -> tuple:
     out = generate(params, cfg, prompts, GEN)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    per_step = 0 if cfg.use_mla else cfg.n_layers
+    per_step = attention_layers(cfg)
     want = {k: (per_step * (P + GEN) if k == "decode_attention" else 0)
             for k in launches}
     if launches != want:
@@ -4518,13 +4547,13 @@ def lm_profile(torch, fn, steps: int) -> dict:
 
 
 def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
-                  paths) -> dict:
+                  paths, profiled: int = LM_PROFILED) -> dict:
     """Each of ``paths`` ((label, driver, method, candidates)) for
     ``LM_STEPS`` steps of ``cfg`` from ``base`` (one ``T.init``; the
     steps are functional and never write it): every step's loss finite,
     the launches LM_STEPS times ``lm_per_step``; ms a step on the host
     clock after a sync over the unprofiled steps 2 on, then the last
-    ``LM_PROFILED`` under the profiler (busy share, top kernels); the
+    ``profiled`` under the profiler (busy share, top kernels); the
     allocator's peak. Under MoE also each step's ``lb_loss`` and
     ``drop_frac``, from a forward pass of the step's input parameters on
     its batch outside the timed and profiled steps (``loss_fn``'s aux,
@@ -4590,7 +4619,7 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
         build.reset_launches()
         torch.cuda.synchronize()
         times = []
-        for i in range(LM_STEPS - LM_PROFILED):
+        for i in range(LM_STEPS - profiled):
             t0 = time.perf_counter()
             prev, (state, loss, stats) = state[0], one(state,
                                                        stream_batches[i])
@@ -4603,14 +4632,14 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
 
         def tail():
             nonlocal state, stats
-            for i in range(LM_STEPS - LM_PROFILED, LM_STEPS):
+            for i in range(LM_STEPS - profiled, LM_STEPS):
                 if cfg.is_moe:
                     held_in.append(state[0])
                 state, loss, stats = one(state, stream_batches[i])
                 losses.append(loss)
-        prof = lm_profile(torch, tail, LM_PROFILED)
+        prof = lm_profile(torch, tail, profiled)
         launches = dict(build.LAUNCHES)
-        auxes += [aux_of(p, stream_batches[LM_STEPS - LM_PROFILED + j])
+        auxes += [aux_of(p, stream_batches[LM_STEPS - profiled + j])
                   for j, p in enumerate(held_in)]
         del held_in
         want = {k: LM_STEPS * v for k, v in
@@ -4640,7 +4669,7 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
         say(f"lm train: {label}: {LM_STEPS} steps, losses "
             f"{losses[0]:.4f} .. {losses[-1]:.4f}; "
             f"{rec['ms']:.1f} ms a step (median of steps 2-"
-            f"{LM_STEPS - LM_PROFILED}: "
+            f"{LM_STEPS - profiled}: "
             f"{', '.join(f'{t:.1f}' for t in times[1:])}; first "
             f"{times[0]:.1f}); profiled {prof['ms']:.1f} ms a step, busy "
             f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%); "
@@ -5095,6 +5124,250 @@ def phase_families(torch, dev, scratch: str) -> tuple:
                    "moe_train": runs}
 
 
+# ---------------------------------------------------------------------------
+# 11: the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# mamba2-780m (attention-free Mamba2) and zamba2-2.7b (Mamba2 with one
+# shared attention block after every 6 layers)
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
+# decode_attention at zamba2's serve shape (B 8, H = G = 32, D 80): the
+# serve phase's cache at its end, a longer one, and the 8,192-position
+# window, zamba2's longest cache
+D80_SERVE = (8, 32, 32, 80)
+D80_S = (160, 4096, 8192)
+# card == CPU in float32 at full width (layers, the caches' tolerance):
+# mamba2 at 2 layers; zamba2 at 6, one group and one application of the
+# shared block (so the D 80 kernel runs in float32 against the CPU's plain
+# version), whose caches after six full-width layers of float32 sums in
+# other orders lie up to 1.3e-5 from the CPU's (the conv state of layer 6
+# on the H100), past the 1e-5 that two layers hold
+SSM_PARITY = {"mamba2-780m": (2, 1e-5), "zamba2-2.7b": (6, 1e-4)}
+# zamba2-2.7b's training cut, a multiple of its 6-layer group: 30 of 54
+# layers, 1.38 B parameters. At 36 layers (1.62 B, about internlm2-1.8b's
+# 1.7 B) the single rAge-k path peaked at 55.8 GiB, but the manual sync's
+# ran out of the card's memory at its ninth step on the H100 (52.2 GiB
+# allocated and 25.0 GiB reserved but free, cut up by the 3.9 GB float32
+# temporaries of the 963 M-element in_proj); 54 layers would be 2.34 B
+HYBRID_TRAIN_LAYERS = 30
+# the profiled steps of each training path: one, to keep the phase short
+# (the profiler's trace of a step holds some 10,000 kernels and their ops)
+SSM_PROFILED = 1
+
+
+def d80_da_check(torch, dev, gen) -> list:
+    """``decode_attention`` at D 80 (``csrc/decode_attention_d80.cu``) at
+    zamba2's serve shape over ``D80_S`` positions in bfloat16 and float32:
+    against its plain version within ``_da_close`` at cache_len 1, S - 13
+    and S, bitwise repeatable; device times beside the bound, the plain
+    version and ``scaled_dot_product_attention``."""
+    recs = []
+    B, H, G, D = D80_SERVE
+    for dtype, tol in DA_TOL.items():
+        dt = getattr(torch, dtype)
+        for S in D80_S:
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(dt)
+            k = torch.randn((B, S, G, D), generator=gen, device=dev).to(dt)
+            v = torch.randn((B, S, G, D), generator=gen, device=dev).to(dt)
+            err = max(_da_check(torch, q, k, v, clen, tol)[0]
+                      for clen in (1, S - 13, S))
+            cut, cut_text = _da_cut(q, k, v, S)
+            t = _da_times(torch, q, k, v, S, tol)
+            rec = dict(arch="zamba2-2.7b", B=B, H=H, G=G, D=D, S=S,
+                       dtype=dtype, max_abs_err=err, splits=cut["splits"],
+                       tile_bytes=cut["tile_bytes"], **t)
+            say(f"  decode_attention zamba2 B={B} H={H} G={G} D={D} S={S} "
+                f"{dtype} ({2 * k.numel() * k.element_size() / 1e6:.0f} MB "
+                f"of K and V): max_abs_err {err:.3e}; {cut_text}, kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
+                f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
+                f"({t['bound_by']})")
+            recs.append(rec)
+            del q, k, v
+    return recs
+
+
+def ssm_parity(torch, dev, arch: str) -> str:
+    """``arch`` at full width with ``SSM_PARITY`` layers in float32: 12
+    decode steps card == CPU (``decode_parity``, the caches within
+    ``SSM_PARITY``'s tolerance); ``prefill`` over 12
+    tokens card == CPU within rtol=atol=1e-4; and on the card the decode
+    loop's last logits == ``prefill`` over the tokens it was fed
+    (``decode_vs_prefill`` at 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    layers, cache_tol = SSM_PARITY[arch]
+    cfg = get_config(arch).replace(n_layers=layers, dtype="float32",
+                                   remat=False)
+    err = decode_parity(torch, dev, cfg, cache_tol)
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _tree_to(cpu, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = T.prefill(cpu, cfg, {"tokens": toks})
+        got = T.prefill(card, cfg, {"tokens": toks.to(dev)})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache = T.init_cache(cfg, 2, 12, device=dev)
+    for t in range(12):
+        logits, cache = T.decode_step(card, cfg, {"token": toks[:, t].to(dev)},
+                                      cache, t)
+    same = decode_vs_prefill(torch, card, cfg, toks.to(dev), logits, 1e-4)
+    return (f"{arch} (full width, {cfg.n_layers} layers, float32): 12 decode "
+            f"steps card == CPU (max |logit diff| {err:.3e}, caches within "
+            f"{cache_tol}); prefill card "
+            f"== CPU (max |diff| {float((got.cpu() - want).abs().max()):.3e});"
+            f" {same}; in {time.perf_counter() - t0:.1f} s")
+
+
+def ssm_train(torch, dev, mesh, arch: str, gen) -> tuple:
+    """``arch`` at full width in bfloat16 (zamba2 cut to
+    ``HYBRID_TRAIN_LAYERS``): the report and ``sparse_aggregate`` at the
+    largest bucket's gradient == their plain versions, then
+    ``LM_STEPS`` steps of each ``MOE_PATHS`` path (``lm_full_width``).
+    Returns (the paths' launch counts, the report's and the aggregate's
+    records, the paths' records)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsify import bucket_budgets
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, value_and_grad
+
+    full = get_config(arch)
+    cfg = full.replace(remat=False)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=HYBRID_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    base = T.init(cfg, gen)
+    names = _leaf_names(base)
+    leaves = flatten(base)[0]
+    sizes = [p.numel() for p in leaves]
+    budgets = bucket_budgets(sizes, LM_TRAIN["r"], LM_TRAIN["k"])
+    stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
+                          LM_TRAIN["seq"], seed=1)
+    batches = [train.to_device(next(stream), dev) for _ in range(LM_STEPS)]
+    say(f"ssm train: {cfg.name} at full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers: {sum(sizes):,} params in {len(sizes)} "
+        f"leaves ({', '.join(sorted({str(p.dtype)[6:] for p in leaves}))}),"
+        f" init {time.perf_counter() - t0:.1f} s; buckets (d, r_b, k_b): "
+        + ", ".join(f"{n} ({d:,}, {r}, {k})"
+                    for n, d, (r, k) in zip(names, sizes, budgets)))
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    if sizes[big] >= 2 ** 31:
+        raise AssertionError(f"{cfg.name}: bucket {names[big]} has "
+                             f"{sizes[big]:,} elements, past int32")
+    _, grads = value_and_grad(lambda p, b: T.loss_fn(p, cfg, b)[0], base,
+                              batches[0])
+    report = [lm_report_check(torch, flatten(grads)[0][big], budgets[big][0],
+                              f"{cfg.name} {names[big]} gradient")]
+    del grads
+    torch.cuda.empty_cache()
+    aggregate = lm_aggregate_check(torch, dev, gen, sizes[big],
+                                   budgets[big][1])
+    torch.cuda.empty_cache()
+    runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS,
+                         profiled=SSM_PROFILED)
+    total = {k: 0 for k in build.LAUNCHES}
+    for rec in runs.values():
+        for k, v in rec["launches"].items():
+            total[k] += v
+    del base, batches
+    torch.cuda.empty_cache()
+    return total, report, aggregate, runs
+
+
+def phase_ssm_hybrid(torch, dev, scratch: str) -> tuple:
+    """11: the SSM and hybrid families on the card. ``decode_attention`` at
+    D 80 (``d80_da_check``); each arch card == CPU in float32
+    (``ssm_parity``); each served at full width and depth in bfloat16
+    (``serve_arch``, then the top device kernels of four decode steps);
+    each trained at full width (``ssm_train``) over a world-size-1 NCCL
+    group; ``launch.serve --smoke`` and ``launch.train --smoke`` for both
+    on the card. Returns (the phase's launch counts, the records)."""
+    import contextlib
+    import io
+    import math
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    walls = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    da = d80_da_check(torch, dev, gen)
+    torch.cuda.empty_cache()
+    walls["decode_attention"] = time.perf_counter() - t_phase
+    for arch in SSM_ARCHS:
+        say(f"ssm parity: {ssm_parity(torch, dev, arch)}")
+        torch.cuda.empty_cache()
+    walls["parity"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    total = {k: 0 for k in build.LAUNCHES}
+    served = []
+    for arch in SSM_ARCHS:
+        rec, params, prompts, out = serve_arch(torch, dev, get_config(arch))
+        for k, v in rec["launches"].items():
+            total[k] += v
+        profile_decode(torch, dev, params, get_config(arch), prompts[:, :8],
+                       steps=4)
+        served.append(rec)
+        del params, prompts, out
+        torch.cuda.empty_cache()
+    walls["serve"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    os.makedirs(scratch, exist_ok=True)
+    pg = os.path.join(scratch, "pg_file_ssm")
+    if os.path.exists(pg):
+        os.remove(pg)
+    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    report, aggregate, trained = [], [], {}
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch in SSM_ARCHS:
+            launches, rep_, agg, runs = ssm_train(torch, dev, mesh, arch, gen)
+            for k, v in launches.items():
+                total[k] += v
+            report += rep_
+            aggregate += agg
+            trained[arch] = runs
+    finally:
+        dist.destroy_process_group()
+    walls["train"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    for arch in SSM_ARCHS:
+        for argv in (["launch.serve", "--arch", arch, "--smoke"],
+                     ["launch.train", "--arch", arch, "--smoke", "--steps",
+                      "5"]):
+            mod = {"launch.train": train, "launch.serve": serve}[argv[0]]
+            buf = io.StringIO()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv[1:])
+            for k, v in build.LAUNCHES.items():
+                total[k] += v
+            if mod is train and not all(map(math.isfinite, res["losses"])):
+                raise AssertionError(f"{' '.join(argv)}: losses "
+                                     f"{res['losses']}")
+            say(f"ssm: `{' '.join(argv)}` on the card in "
+                f"{time.perf_counter() - t0:.1f} s: "
+                + " | ".join(buf.getvalue().strip().splitlines()))
+    walls["cli"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"ssm: phase wall {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"); launches {total}")
+    return total, {"decode_attention": da, "threshold_topk_batch": report,
+                   "sparse_aggregate": aggregate, "serve": served,
+                   "train": trained}
+
+
 def _leaf_names(tree, prefix: str = "") -> list:
     """Leaf paths in ``jax.tree_util`` order, joined with '/'."""
     out = []
@@ -5195,17 +5468,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam, fam_recs = phase_families(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    torch.cuda.empty_cache()
+    ssm, ssm_recs = phase_ssm_hybrid(torch, dev, os.path.join(
+        ROOT, "build", "lm_smoke"))
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
             faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
             fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long, lm,
-            fam))
+            fam, ssm))
         if k["name"] in lm_recs:
             k["lm_buckets"] = lm_recs[k["name"]]
         if k["name"] in fam_recs:
             k["families"] = fam_recs[k["name"]]
+        if k["name"] in ssm_recs:
+            k["ssm_hybrid"] = ssm_recs[k["name"]]
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

@@ -2,7 +2,7 @@
 ``list_archs()``, with the arch ids of ``repro.configs``.
 
 Every id is listed; an arch whose config the port does not carry yet
-(the SSM, hybrid, VLM and audio families) raises ``NotImplementedError``
+(the VLM and audio families) raises ``NotImplementedError``
 naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -27,9 +27,9 @@ _ARCHS = {
     "gemma-2b": "gemma_2b",
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-v2-236b": "deepseek_v2_236b",
-    "mamba2-780m": "item 16.4 (SSM)",
+    "mamba2-780m": "mamba2_780m",
     "whisper-large-v3": "item 16.7 (audio)",
-    "zamba2-2.7b": "item 16.5 (hybrid)",
+    "zamba2-2.7b": "zamba2_2_7b",
     "pixtral-12b": "item 16.6 (VLM)",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",

@@ -12,7 +12,7 @@ cudaError_t launch_d128(bool bf16, const Args& a) {
 
 // q: (B, H, D), k/v: (B, S, G, D), out: (B, H, D), all float32 (bf16 = 0)
 // or bfloat16 (bf16 = 1), contiguous and 16-byte aligned; n = number of
-// valid cache positions, 0 <= n <= S; D in {32, 64, 128, 256}, H / G <= 16.
+// valid cache positions, 0 <= n <= S; D in {32, 64, 80, 128, 256}, H / G <= 16.
 // The first n positions are cut into splits ranges of chunk positions
 // (the last one shorter or empty), walked in tiles of tile_bytes of K and
 // of V (kSmallTile or kLargeTile); part: float32 scratch of
@@ -35,6 +35,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     switch (D) {
       case 32: e = launch_d32(bf16 != 0, a); break;
       case 64: e = launch_d64(bf16 != 0, a); break;
+      case 80: e = launch_d80(bf16 != 0, a); break;
       case 128: e = launch_d128(bf16 != 0, a); break;
       case 256: e = launch_d256(bf16 != 0, a); break;
     }

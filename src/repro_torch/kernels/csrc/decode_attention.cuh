@@ -34,15 +34,24 @@
 //     16-byte chunks of the row, neighbouring lanes on neighbouring
 //     chunks), a warp four positions at a time, the query rows in
 //     registers; a three-step reduction inside the group; each warp keeps
-//     each row's max over its positions. A row of fewer than eight chunks
-//     (D 32 in bfloat16: four) takes a group of that many lanes, and a
-//     warp then scores more positions at a time;
+//     each row's max over its positions. The group is the largest power
+//     of two up to eight that divides the row's chunks, so that every
+//     lane holds the same whole count of them: four lanes at D 32 in
+//     bfloat16 (four chunks), and at D 80 two in bfloat16 (ten chunks,
+//     five a lane) and four in float32 (twenty); a warp then scores more
+//     positions at a time;
 // (2) softmax: the row max over the warps' maxes folds into the running
 //     max (the TPU kernel's guards: m_safe = 0 while the max is -inf,
 //     alpha = 0 while the previous max is -inf); every warp exponentiates
 //     a share of the scores and sums its share;
 // (3) p @ v: each thread owns two columns of every row over a fixed
 //     group of the tile's positions and adds p * v in position order.
+//     The D / 2 column pairs take 256 / (D / 2) position groups (6 at
+//     D 80, whose last 16 threads own nothing), and the tile is cut down
+//     to a whole count of positions that is a multiple of four times the
+//     groups (144 of 153.6 at D 80 in a small bfloat16 tile), so that
+//     every position of a tile lies in exactly one group and the groups'
+//     float4 reads of the scores stay aligned.
 // The running sum adds the warps' shares in warp order, and at the end the
 // position groups' partial outputs are added in group order. With one
 // split the block writes acc / max(l, 1e-30) itself; with more, it writes
@@ -57,9 +66,9 @@
 //
 // The kernel templates and the launcher live here; each head dim's
 // instantiations are compiled in a source of their own
-// (decode_attention_d32.cu, decode_attention_d64.cu, decode_attention.cu
-// for D 128, decode_attention_d256.cu), so the parallel nvcc runs overlap
-// them.
+// (decode_attention_d32.cu, decode_attention_d64.cu, decode_attention_d80.cu,
+// decode_attention.cu for D 128, decode_attention_d256.cu), so the
+// parallel nvcc runs overlap them.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,12 +144,18 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int D, int REP, int TB>
 struct Cfg {
   static constexpr int kMinBlocks = TB == kSmallTile ? 2 : 1;  // an SM
-  static constexpr int kTile = TB / (D * int(sizeof(T)));  // positions
+  static constexpr int kPairs = D / 2;                    // columns of p @ v
+  static constexpr int kPG = kThreads / kPairs;           // position groups
+  // positions: as many as TB holds, cut to a multiple of 4 * kPG
+  static constexpr int kTile = TB / (D * int(sizeof(T))) / (4 * kPG) * (4 * kPG);
   static constexpr int kEPC = 16 / int(sizeof(T));        // elements a chunk
   static constexpr int kRowChunks = D / kEPC;             // chunks a row
-  // lanes that score one position: 8, or a row's chunks where it has fewer
-  // (4 at D 32 in bfloat16), so that every lane holds at least one chunk
-  static constexpr int kGroup = kRowChunks < 8 ? kRowChunks : 8;
+  // lanes that score one position: the largest power of two up to 8 that
+  // divides the row's chunks (4 at D 32 in bfloat16; 2 and 4 at D 80 in
+  // bfloat16 and float32), so that every lane holds the same chunk count
+  static constexpr int kGroup = kRowChunks % 8 == 0 ? 8
+                                : kRowChunks % 4 == 0 ? 4
+                                : kRowChunks % 2 == 0 ? 2 : 1;
   static constexpr int kCPL = kRowChunks / kGroup;        // chunks a lane
   static constexpr int kGE = kCPL * kEPC;                 // elements a lane
   static constexpr int kUnroll = 32 / kGE > 0 ? (32 / kGE < 4 ? 32 / kGE : 4) : 1;
@@ -148,9 +163,9 @@ struct Cfg {
                                        ? REP : (32 / kGE > 0 ? 32 / kGE : 1);
   static constexpr int kStep = (32 / kGroup) * kUnroll;  // positions a warp step
   static constexpr int kWPR = REP < kWarps ? kWarps / REP : 1;  // warps a row
-  static constexpr int kPairs = D / 2;                    // columns of p @ v
-  static constexpr int kPG = kThreads / kPairs;           // position groups
   static constexpr int kChunk = kTile / kPG;              // a group's positions
+  static_assert(kTile > 0 && kTile % (4 * kPG) == 0 && kRowChunks % kGroup == 0,
+                "a tile's positions split evenly over the position groups");
   static constexpr size_t kSmem =
       2 * kStages * TB +
       4 * (REP * kTile + REP * D + kWarps * REP + REP * kWPR + 4 * REP);
@@ -340,7 +355,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // (3) p @ v: thread (pg, c2) owns columns c2, c2 + 1 of every row over
-    // its group's kChunk positions of the tile
+    // its group's kChunk positions of the tile (none for pg >= kPG)
     float alpha[REP];
 #pragma unroll
     for (int j = 0; j < REP; ++j) {
@@ -387,10 +402,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the position groups' partial sums, added in group order (fixed)
   float* red = reinterpret_cast<float*>(smem);    // [kPG][REP][D]
+  if (pg < C::kPG) {
 #pragma unroll
-  for (int j = 0; j < REP; ++j) {
-    red[(pg * REP + j) * D + c2] = acc[j][0];
-    red[(pg * REP + j) * D + c2 + 1] = acc[j][1];
+    for (int j = 0; j < REP; ++j) {
+      red[(pg * REP + j) * D + c2] = acc[j][0];
+      red[(pg * REP + j) * D + c2 + 1] = acc[j][1];
+    }
   }
   __syncthreads();
   for (int i = tid; i < rep * D; i += kThreads) {
@@ -481,6 +498,7 @@ cudaError_t by_tile(const Args& a) {
 // one head dim's launcher for both dtypes, each defined in its own source
 cudaError_t launch_d32(bool bf16, const Args& a);
 cudaError_t launch_d64(bool bf16, const Args& a);
+cudaError_t launch_d80(bool bf16, const Args& a);
 cudaError_t launch_d128(bool bf16, const Args& a);
 cudaError_t launch_d256(bool bf16, const Args& a);
 

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import SMEM_LIMIT
 
-HEAD_DIMS = (32, 64, 128, 256)  # the kernel's head dims (template parameter)
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the kernel's head dims (template parameter)
 MAX_REP = 16                   # query heads per kv head the kernel takes
 # csrc/decode_attention.cuh's kSmallTile and kLargeTile: bytes of K (and
 # of V) in a tile, with which the partial kernel fits two blocks on an SM,
@@ -35,6 +35,7 @@ SMALL_TILE = 24576
 LARGE_TILE = 49152
 BLOCKS_PER_SM = {SMALL_TILE: 2, LARGE_TILE: 1}
 WARPS = 8                      # the partial kernel's 256 threads
+THREADS = 32 * WARPS
 # the latest launch's tile_bytes, splits and chunk (positions a split)
 LAST_CUT: dict = {}
 
@@ -45,8 +46,13 @@ def _valid(cache_len, S: int) -> int:
 
 def tile_positions(D: int, itemsize: int,
                    tile_bytes: int = SMALL_TILE) -> int:
-    """Cache positions in one tile of ``tile_bytes``."""
-    return tile_bytes // (D * itemsize)
+    """Cache positions in one tile of ``tile_bytes`` (``Cfg::kTile``): as
+    many rows as it holds, cut down to a multiple of four times the p @ v
+    position groups (256 threads over the D / 2 column pairs), so that
+    each group owns a whole, aligned share (144 rather than 153 at D 80
+    in a small bfloat16 tile; every other head dim divides evenly)."""
+    step = 4 * (THREADS // (D // 2))
+    return tile_bytes // (D * itemsize) // step * step
 
 
 def smem_bytes(D: int, itemsize: int, rep: int, tile_bytes: int) -> int:

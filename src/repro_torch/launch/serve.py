@@ -6,9 +6,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve   # internlm2-1.8b, card
 
 ``--arch`` takes the dense ids (internlm2-1.8b, gemma-2b, phi4-mini-3.8b,
-qwen1.5-110b) and the MoE ones (granite-moe-3b-a800m; deepseek-v2-236b,
-whose attention is MLA); qwen1.5-110b and deepseek-v2-236b at full
-depth outgrow one 80 GB card. Weights are random from seed 0 (no
+qwen1.5-110b), the MoE ones (granite-moe-3b-a800m; deepseek-v2-236b,
+whose attention is MLA), the SSM one (mamba2-780m, whose decode step
+carries conv and SSM states and launches no attention kernel) and the
+hybrid one (zamba2-2.7b: its shared attention block, head dim 80, reads
+a K/V ring of the 8,192-position window); qwen1.5-110b and
+deepseek-v2-236b at full depth outgrow one 80 GB card. Weights are random from seed 0 (no
 checkpoints are in the repository). Without ``--device`` it runs on the
 card and raises without one.
 """

@@ -1,5 +1,8 @@
 """Step builders: the port of ``repro.launch.steps``'s ``make_train_step``,
-``make_prefill_step`` and ``make_decode_step``.
+``make_prefill_step`` and ``make_decode_step``, for every family that
+``models.transformer`` ports (dense, MoE, SSM, hybrid): the SSM and
+hybrid decode steps write their conv and SSM states into the cache in
+place, as every family writes its K/V rows.
 
 The sharding-spec helpers of the reference (``batch_spec_tree``,
 ``cache_spec_tree``, ``param_sharding``, ``opt_sharding``) and the

@@ -7,8 +7,11 @@ protocol as a data-parallel collective): the port of
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10   # card
 
 Without ``--smoke`` the arch runs at full size (internlm2-1.8b: 24
-layers, 1,699,842,048 parameters in bfloat16). ``--arch`` takes the dense
-and MoE ids; an MoE arch's loss carries 0.01 * its load-balance term. Weights are random from
+layers, 1,699,842,048 parameters in bfloat16). ``--arch`` takes the dense,
+MoE, SSM (mamba2-780m) and hybrid (zamba2-2.7b) ids; an MoE arch's loss
+carries 0.01 * its load-balance term, and the SSM layers' float32
+``A_log``, ``D``, ``dt_bias`` and ``gate_norm`` are buckets of their own
+dtype beside the bfloat16 ones. Weights are random from
 seed 0, the tokens ``data.token_stream``'s from seed 1. Without
 ``--device`` it runs on the card and raises without one. ``main(argv)``
 returns the losses of every step and the summed wire bytes.

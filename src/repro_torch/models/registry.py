@@ -23,8 +23,8 @@ class ModelFns:
 
 def get_model(cfg) -> ModelFns:
     """The decoder's functions for the dense and MoE families (GQA or MLA
-    attention); the SSM, hybrid, VLM and audio families raise (see
-    ``transformer.require_ported``)."""
+    attention), the SSM family and the hybrid one; the VLM and audio
+    families raise (see ``transformer.require_ported``)."""
     T.require_ported(cfg)
     return ModelFns(T.init, T.loss_fn, T.prefill, T.decode_step,
                     T.init_cache)

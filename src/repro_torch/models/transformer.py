@@ -1,10 +1,12 @@
-"""The decoder-only LMs: the port of the dense and MoE families of
-``repro.models.transformer`` (parameter init, the training loss with
-its chunked cross entropy and MoE's load-balance term, the prefill
-forward, the KV or latent cache and the single-token decode step).
-A block's attention is GQA (``layers``) or MLA (``mla``, under
-``cfg.use_mla``), and its FFN an MLP or a mixture of experts (``moe``,
-under ``cfg.is_moe``).
+"""The decoder-only LMs: the port of the dense, MoE, SSM and hybrid
+families of ``repro.models.transformer`` (parameter init, the training
+loss with its chunked cross entropy and MoE's load-balance term, the
+prefill forward, the KV, latent or state cache and the single-token
+decode step). A dense or MoE block's attention is GQA (``layers``) or
+MLA (``mla``, under ``cfg.use_mla``), and its FFN an MLP or a mixture of
+experts (``moe``, under ``cfg.is_moe``). An SSM block is a Mamba2 mixer
+(``ssm``); the hybrid family (Zamba2) runs ``attn_every`` of them, then
+one attention block whose weights every group shares.
 
 API (see registry.py):
   init(cfg, generator, device=None)             -> params
@@ -15,12 +17,13 @@ API (see registry.py):
 
 Parameters keep the reference's tree: layer leaves stacked on a leading
 ``n_layers`` axis, so ``weights.params_from_jax`` carries them across
-leaf for leaf. Layers run in a Python loop. The loss's gradient is
-plain autograd, as the reference's is plain autodiff (nothing in its
-``models/`` has a custom VJP). ``decode_step`` writes the new K/V (or
-latent) rows into the cache in place and returns the same cache. The
-SSM, hybrid, VLM and audio families raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+leaf for leaf (the hybrid's ``shared`` block unstacked). Layers run in
+a Python loop. The loss's gradient is plain autograd, as the reference's
+is plain autodiff (nothing in its ``models/`` has a custom VJP).
+``decode_step`` writes the new K/V (or latent) rows and the SSM states
+into the cache in place and returns the same cache. The VLM and audio
+families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -31,26 +34,30 @@ from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 # family -> the ROADMAP item (queue 1) that ports it
 _UNPORTED = {
-    "ssm": "item 16.4 (SSM)",
-    "hybrid": "item 16.5 (hybrid)",
     "vlm": "item 16.6 (VLM)",
     "audio": "item 16.7 (audio)",
 }
 
 
 def require_ported(cfg) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder the port serves."""
+    """Raise unless ``cfg`` is a dense, MoE, SSM or hybrid decoder."""
     kind = cfg.family
     if kind in _UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {kind} family is not ported to repro_torch "
             f"yet: ROADMAP queue 1, {_UNPORTED[kind]}")
-    if kind not in ("dense", "moe"):
+    if kind not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not an LM "
                          f"(the paper nets live in models/paper_nets.py)")
+    if kind == "hybrid" and (cfg.attn_every < 1
+                             or cfg.n_layers % cfg.attn_every):
+        raise ValueError(f"{cfg.name}: the hybrid stack needs whole groups "
+                         f"of attn_every={cfg.attn_every} layers, got "
+                         f"n_layers={cfg.n_layers}")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -78,6 +85,11 @@ def _block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
     return p
 
 
+def _ssm_block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
+    return {"ln": L.norm_params(cfg, lead, gen.device),
+            "ssm": SSM.ssm_params(gen, cfg, lead)}
+
+
 def _indexed(dev: torch.device) -> torch.device:
     """``cuda`` as the current card's index, so that devices compare."""
     if dev.type == "cuda" and dev.index is None:
@@ -94,12 +106,18 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
         raise ValueError(f"init: the generator is on {generator.device}, "
                          f"the parameters are asked for on {dev}")
     dtype = L.dtype_of(cfg)
+    lead = (cfg.n_layers,)
     params = {
         "embed": {"w": L.embed_init(generator, cfg.padded_vocab,
                                     cfg.d_model, dtype)},
         "norm_f": L.norm_params(cfg, device=generator.device),
-        "layers": _block_params(generator, cfg, (cfg.n_layers,)),
     }
+    if cfg.family in ("ssm", "hybrid"):
+        params["layers"] = _ssm_block_params(generator, cfg, lead)
+    else:
+        params["layers"] = _block_params(generator, cfg, lead)
+    if cfg.family == "hybrid":
+        params["shared"] = _block_params(generator, cfg.replace(n_experts=0))
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": L.dense_init(generator, cfg.d_model,
                                                cfg.padded_vocab, dtype)}
@@ -133,6 +151,28 @@ def _dense_block_seq(p, cfg, x, positions):
     return x + L.apply_mlp(p["mlp"], cfg, h), {}
 
 
+def _ssm_block_seq(p, cfg, x):
+    h = L.apply_norm(p["ln"], cfg, x)
+    return x + SSM.apply_ssm(p["ssm"], cfg, h)
+
+
+def _hybrid_group_seq(layers, shared, cfg, x, positions, g: int):
+    """Group g of the hybrid stack: its ``attn_every`` SSM layers, then the
+    shared attention block."""
+    G = cfg.attn_every
+    for i in range(g * G, (g + 1) * G):
+        x = _ssm_block_seq(_layer(layers, i), cfg, x)
+    return _dense_block_seq(shared, cfg, x, positions)[0]
+
+
+def _remat(fn, cfg, *args):
+    """fn(*args), its activations recomputed in the backward pass under
+    ``cfg.remat`` while autograd records."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _backbone(params, cfg, x, positions):
     """The decoder stack over x: (B, S, d) -> (hidden, aux): ``lb_loss``
     summed over the layers and divided by their count, ``drop_frac`` their
@@ -141,19 +181,28 @@ def _backbone(params, cfg, x, positions):
     recomputed in the backward pass (``torch.utils.checkpoint``), which
     changes memory and never values. PyTorch has no policy that keeps the
     matmuls' outputs, so the reference's ``remat_policy='save_dots'``
-    recomputes the whole layer too, as ``'full'`` does."""
+    recomputes the whole layer too, as ``'full'`` does. The SSM family
+    checkpoints a layer, the hybrid one a group (``attn_every`` SSM
+    layers and the shared block), as the reference's scans do."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    no_aux = {"lb_loss": zero, "drop_frac": zero}
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _remat(_ssm_block_seq, cfg, _layer(params["layers"], i),
+                       cfg, x)
+        return x, no_aux
+    if cfg.family == "hybrid":
+        for g in range(cfg.n_layers // cfg.attn_every):
+            x = _remat(_hybrid_group_seq, cfg, params["layers"],
+                       params["shared"], cfg, x, positions, g)
+        return x, no_aux
     auxes = []
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_dense_block_seq, p, cfg, x, positions,
-                                use_reentrant=False)
-        else:
-            x, aux = _dense_block_seq(p, cfg, x, positions)
+        x, aux = _remat(_dense_block_seq, cfg, _layer(params["layers"], i),
+                        cfg, x, positions)
         auxes.append(aux)
     if not cfg.is_moe:
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, {"lb_loss": zero, "drop_frac": zero}
+        return x, no_aux
     lb = sum(a["lb_loss"] for a in auxes)     # in layer order, as the scan
     drop = torch.stack([a["drop_frac"] for a in auxes]).mean()
     return x, {"lb_loss": lb / cfg.n_layers, "drop_frac": drop}
@@ -239,19 +288,36 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     dtype on ``device`` (None means the card); S = min(max_len, window)
     under a sliding window, else max_len. Under MLA the latent caches
     instead: c_kv (n_layers, batch, max_len, kv_lora_rank) and k_rope
-    (n_layers, batch, max_len, 64)."""
+    (n_layers, batch, max_len, 64). The SSM family's: conv (n_layers,
+    batch, K-1, d_inner + 2 n) in the model dtype and state (n_layers,
+    batch, nh, hp, n) in float32; the hybrid's those and K/V for each
+    application of the shared block, (n_layers / attn_every, batch, S, G,
+    head_dim)."""
     require_ported(cfg)
     dev = resolve(device)
     dtype = L.dtype_of(cfg)
+    S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache = {
+            "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=dev),
+            "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_nheads,
+                                  cfg.ssm_headdim, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev)}
+        if cfg.family == "ssm":
+            return cache
     if cfg.use_mla:
         lead = (cfg.n_layers, batch, max_len)
         return {"c_kv": torch.zeros((*lead, cfg.kv_lora_rank), dtype=dtype,
                                     device=dev),
                 "k_rope": torch.zeros((*lead, MLA.ROPE_DIM), dtype=dtype,
                                       device=dev)}
-    S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+    n_apps = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+              else cfg.n_layers)
+    shape = (n_apps, batch, S, cfg.n_kv_heads, cfg.head_dim_)
+    return {**cache, "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
@@ -280,6 +346,10 @@ def decode_step(params, cfg, inputs, cache, pos: int):
     cache updated in place."""
     require_ported(cfg)
     x = params["embed"]["w"][inputs["token"].to(torch.int64)][:, None, :]
+    if cfg.family in ("ssm", "hybrid"):
+        x = _ssm_decode(params, cfg, x, cache, pos)
+        x = L.apply_norm(params["norm_f"], cfg, x)
+        return _logits(params, cfg, x[:, 0]), cache
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         a = L.apply_norm(p["ln1"], cfg, x)
@@ -294,3 +364,25 @@ def decode_step(params, cfg, inputs, cache, pos: int):
                  else L.apply_mlp(p["mlp"], cfg, a))
     x = L.apply_norm(params["norm_f"], cfg, x)
     return _logits(params, cfg, x[:, 0]), cache
+
+
+def _ssm_decode(params, cfg, x, cache, pos: int):
+    """The SSM and hybrid stacks' decode: each layer's recurrent update on
+    its conv and SSM states; in the hybrid, after every ``attn_every``
+    layers the shared block, its attention on that application's K/V
+    (a ring at pos % S under the window)."""
+    G = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+    shared = params.get("shared")
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        a = L.apply_norm(p["ln"], cfg, x)
+        x = x + SSM.ssm_decode_step(p["ssm"], cfg, a, cache["conv"][i],
+                                    cache["state"][i])
+        if shared is not None and (i + 1) % G == 0:
+            g = i // G
+            a = L.apply_norm(shared["ln1"], cfg, x)
+            x = x + _attn_decode(shared["attn"], cfg, a, cache["k"][g],
+                                 cache["v"][g], pos)
+            a = L.apply_norm(shared["ln2"], cfg, x)
+            x = x + L.apply_mlp(shared["mlp"], cfg, a)
+    return x

@@ -1,13 +1,17 @@
 """An LM arch's smoke config in the port against the JAX package, for the
 family test modules (``tests/test_torch_dense_archs.py``,
-``test_torch_moe.py``, ``test_torch_mla.py``).
+``test_torch_moe.py``, ``test_torch_mla.py``, ``test_torch_ssm.py``,
+``test_torch_hybrid.py``).
 
 :func:`reference` runs the reference once for a module fixture: its
 ``T.init(cfg, PRNGKey(0))`` parameters (QKV biases made nonzero, since
 both packages start them at 0), the greedy serve loop of decode steps,
 ``prefill`` and ``loss_fn`` with its gradient; the ``check_*`` functions
 hold the port, started from the same parameters carried across by
-``weights.params_from_jax``, to each.
+``weights.params_from_jax``, to each. A module may hand ``reference``
+config fields to replace in both packages' smoke configs (a sliding
+window), and tolerances that replace the defaults below for its family,
+each stated with its reason in that module's docstring.
 
 Tolerances, each with its reason (the levels of ``tests/test_torch_lm.py``
 and ``tests/test_torch_lm_train.py``). Logits are held within tol
@@ -166,10 +170,14 @@ def _jax_loop(jcfg, jparams, prompts, gen):
     return steps, np.stack(toks, 1), fed
 
 
-def reference(arch: str, dtype: str) -> dict:
-    """The reference's runs on ``arch``'s smoke config in ``dtype``."""
-    jcfg = j_smoke_config(arch).replace(dtype=dtype, remat=False)
-    tcfg = get_smoke_config(arch).replace(dtype=dtype, remat=False)
+def reference(arch: str, dtype: str, tol: dict | None = None,
+              **fields) -> dict:
+    """The reference's runs on ``arch``'s smoke config in ``dtype``, with
+    ``fields`` replaced in both packages' configs; the checks hold the
+    port to ``TOL[dtype]`` updated by ``tol``."""
+    jcfg = j_smoke_config(arch).replace(dtype=dtype, remat=False, **fields)
+    tcfg = get_smoke_config(arch).replace(dtype=dtype, remat=False,
+                                          **fields)
     jparams = JT.init(jcfg, jax.random.PRNGKey(0))
     if jcfg.qkv_bias:
         jparams = _nonzero_biases(jparams, dtype)
@@ -190,7 +198,8 @@ def reference(arch: str, dtype: str) -> dict:
             lambda p, b: JT.loss_fn(p, c32, b), has_aux=True))(
             jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
                                    jparams), jbatch)
-    return dict(arch=arch, dtype=dtype, jcfg=jcfg, tcfg=tcfg,
+    return dict(arch=arch, dtype=dtype, tol={**TOL[dtype], **(tol or {})},
+                jcfg=jcfg, tcfg=tcfg,
                 jparams=jparams, tparams=carry(jparams), prompts=prompts,
                 steps=steps, toks=toks, fed=fed, pre_toks=pre_toks,
                 prefill=np.asarray(pre),
@@ -222,7 +231,7 @@ def check_init_tree(ref):
 def check_decode_loop(ref):
     """P + GEN decode steps from the same tokens: logits and every cache
     at every step; in float32 the greedy tokens too."""
-    tcfg, tol = ref["tcfg"], TOL[ref["dtype"]]
+    tcfg, tol = ref["tcfg"], ref["tol"]
     cache = TT.init_cache(tcfg, B, P + GEN, device="cpu")
     assert set(cache) == set(ref["steps"][0][1])
     for t, (tok, (jlogits, jcache)) in enumerate(zip(ref["fed"],
@@ -250,7 +259,7 @@ def check_generate(ref):
     assert out.finite and out.tokens.shape == (B, GEN)
     if ref["dtype"] == "float32":
         close_logits(out.logits, ref["steps"][-1][0],
-                     TOL["float32"]["logits"])
+                     ref["tol"]["logits"])
         np.testing.assert_array_equal(out.tokens.numpy(), ref["toks"])
         return
     cache = TT.init_cache(tcfg, B, P + GEN, device="cpu")
@@ -269,7 +278,7 @@ def check_prefill(ref):
     got = TT.prefill(ref["tparams"], ref["tcfg"],
                      {"tokens": torch.from_numpy(ref["pre_toks"])})
     assert got.dtype == torch.float32
-    close_logits(got, ref["prefill"], TOL[ref["dtype"]]["logits"])
+    close_logits(got, ref["prefill"], ref["tol"]["logits"])
 
 
 def check_decode_matches_own_prefill(ref):
@@ -289,7 +298,7 @@ def check_decode_matches_own_prefill(ref):
     for t in range(toks.shape[1]):
         logits, cache = TT.decode_step(ref["tparams"], tcfg,
                                        {"token": toks[:, t]}, cache, t)
-    close_logits(logits, full, TOL[ref["dtype"]]["logits"])
+    close_logits(logits, full, ref["tol"]["logits"])
 
 
 def check_loss(ref):
@@ -297,7 +306,7 @@ def check_loss(ref):
     values) against ``jax.value_and_grad`` of the reference's (in
     bfloat16 its float32 model's gradient, as the module's docstring
     says)."""
-    tol = TOL[ref["dtype"]]
+    tol = ref["tol"]
     (loss, aux), grads = tree.value_and_grad(
         lambda p, b: TT.loss_fn(p, ref["tcfg"], b), ref["tparams"],
         ref["batch"], has_aux=True)

@@ -50,9 +50,9 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 
 # the reference sweep of tests/test_kernels.py, then head dim 32 at the
-# smoke configurations' H 4, G 2
+# smoke configurations' H 4, G 2, and head dim 80 (zamba2-2.7b's, rep 1)
 SWEEP = [(8, 8, 64, 512), (8, 2, 64, 700), (16, 1, 128, 1024),
-         (4, 4, 256, 512), (4, 2, 32, 400)]
+         (4, 4, 256, 512), (4, 2, 32, 400), (4, 4, 80, 333)]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
@@ -158,7 +158,7 @@ def test_split_plain_matches_model_layer(jax_ref, dtype, tol, splits):
 
 
 @pytest.mark.parametrize("D,itemsize", [(64, 2), (128, 2), (256, 4),
-                                        (32, 2), (32, 4)])
+                                        (32, 2), (32, 4), (80, 2), (80, 4)])
 def test_choose_splits_cuts_every_position_once(D, itemsize):
     """Every valid position lies in exactly one split, there is at least
     one split, none is empty, and only the last is shorter than a tile;
@@ -179,6 +179,27 @@ def test_choose_splits_cuts_every_position_once(D, itemsize):
             assert all(hi - lo >= tile for lo, hi in ranges[:-1])
             if splits > 1:
                 assert blocks * splits <= 132 * DA.BLOCKS_PER_SM[tile_bytes]
+
+
+@pytest.mark.parametrize("D", DA.HEAD_DIMS)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_tile_splits_evenly_over_the_position_groups(D, itemsize):
+    """The host's tile (``Cfg::kTile``) fits its bytes and is a multiple of
+    four times the p @ v position groups (256 threads over D / 2 column
+    pairs), so each group owns a whole, float4-aligned share of it; only
+    D 80 loses rows to that cut (153 to 144 positions in a small bfloat16
+    tile)."""
+    groups = 256 // (D // 2)
+    for tile_bytes in (DA.SMALL_TILE, DA.LARGE_TILE):
+        tile = DA.tile_positions(D, itemsize, tile_bytes)
+        rows = tile_bytes // (D * itemsize)
+        assert tile > 0 and tile % (4 * groups) == 0
+        assert rows - 4 * groups < tile <= rows
+        assert (tile == rows) == (D != 80)
+    if D == 80:
+        assert [DA.tile_positions(80, itemsize, t) for t in
+                (DA.SMALL_TILE, DA.LARGE_TILE)] == \
+            {2: [144, 288], 4: [72, 144]}[itemsize]
 
 
 @pytest.mark.parametrize("blocks,n,want", [
@@ -258,7 +279,9 @@ def cuda():
                                              (16, 1, 64, 300),
                                              (16, 8, 128, 8192),
                                              (16, 1, 32, 1000),
-                                             (8, 8, 32, 4099)])
+                                             (8, 8, 32, 4099),
+                                             (8, 2, 80, 1000),
+                                             (32, 32, 80, 8192)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])

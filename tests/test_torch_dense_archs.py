@@ -5,8 +5,10 @@ layers, d 128), inputs made from a seed with numpy, both packages from
 the reference's parameters carried across. The checks and their
 tolerances are ``tests/lm_parity.py``'s: float32 for every arch, and
 bfloat16 once for the family, on qwen1.5-110b (its bias and untied
-head). Then each arch's config field for field, and the serve and
-train command lines on the CPU.
+head). Then each arch's config field for field (mamba2-780m's and
+zamba2-2.7b's too, whose models ``tests/test_torch_ssm.py`` and
+``test_torch_hybrid.py`` hold), and the serve and train command lines on
+the CPU.
 """
 import dataclasses
 import math
@@ -30,7 +32,8 @@ from repro_torch.models.registry import get_model
 ARCHS = ("gemma-2b", "phi4-mini-3.8b", "qwen1.5-110b")
 # ArchConfig.param_count() at full size (embeddings included)
 FULL_PARAMS = {"gemma-2b": 2_506_170_368, "phi4-mini-3.8b": 3_836_411_904,
-               "qwen1.5-110b": 111_209_906_176}
+               "qwen1.5-110b": 111_209_906_176,
+               "mamba2-780m": 780_464_640, "zamba2-2.7b": 2_340_838_848}
 CASES = [(a, "float32") for a in ARCHS] + [("qwen1.5-110b", "bfloat16")]
 
 
@@ -63,7 +66,7 @@ def test_loss_fn_matches(ref):
     P.check_loss(ref)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("mamba2-780m", "zamba2-2.7b"))
 def test_config_matches_reference(arch):
     """Every field of both configs equal to the reference's, the analytic
     parameter count too; the registry serves the arch."""

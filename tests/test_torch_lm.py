@@ -378,9 +378,9 @@ def test_registry_lists_every_reference_arch():
     assert get_model(get_config(ARCH)).decode_step is TT.decode_step
 
 
-# the archs whose configs the port does not carry yet: the SSM, audio,
-# hybrid and VLM families (ROADMAP queue 1, items 16.4-16.7)
-UNPORTED = ("mamba2-780m", "whisper-large-v3", "zamba2-2.7b", "pixtral-12b")
+# the archs whose configs the port does not carry yet: the audio and VLM
+# families (ROADMAP queue 1, items 16.6 and 16.7)
+UNPORTED = ("whisper-large-v3", "pixtral-12b")
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
@@ -406,7 +406,6 @@ def test_paper_net_configs_match_and_serve_refuses(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(family="ssm"), dict(family="hybrid", attn_every=2),
     dict(family="vlm"), dict(family="audio", is_encoder_decoder=True)])
 def test_unported_family_raises(kw):
     cfg = get_smoke_config(ARCH).replace(**kw)

@@ -88,7 +88,7 @@ def test_train_cli_defaults_to_the_card(monkeypatch):
 
 def test_train_cli_rejects_unported_arch(capsys):
     with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+        train.main(["--arch", "pixtral-12b", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--method", "top_k", "--device", "cpu"])
 
