@@ -205,7 +205,29 @@ the last line:
    to ``HYBRID_TRAIN_LAYERS`` = 30 layers) through ``MOE_PATHS``, after the
    report and ``sparse_aggregate`` at its largest bucket's gradient ==
    their plain versions; ``launch.serve --smoke`` and ``launch.train
-   --smoke`` for both archs on the card.
+   --smoke`` for both archs on the card;
+12. vlm and audio (after 11): pixtral-12b (the dense stack, 40 layers,
+   fed embeddings) and whisper-large-v3 (32 encoder and 32 decoder
+   layers, head dim 64, cross attention through ``decode_attention``):
+   ``decode_attention`` at pixtral's serve shape (B 8, H 32, G 8, D 128
+   over 160 and 4,096 positions) and whisper's (H = G = 20, D 64 over
+   448 self and 1,500 cross positions, the cross shape in float32 too)
+   == its plain version beside SDPA and the bound; each arch card == CPU
+   in float32 at full width with 2 layers (whisper: 2 encoder and 2
+   decoder layers, its cross caches filled from the encoder by
+   ``fill_cross``): 12 decode steps from tokens, pixtral's from
+   ``embed`` inputs too, prefill, and decode == prefill on the card;
+   pixtral served at full width and depth in bfloat16 (``serve_arch``,
+   four profiled steps); whisper decoded at full width and depth
+   through ``decode_step`` (30 s of audio, batch 8: the cross caches
+   filled from its encoder, a 128-token prompt, 32 greedy tokens,
+   steps past its 448 target positions clamped alike, four profiled
+   steps); each trained at full width on ``registry.concrete_batch``
+   batches (pixtral cut to 4 of 40 layers, whisper at full depth)
+   through ``MOE_PATHS`` after the report and ``sparse_aggregate`` at
+   its largest bucket's gradient; ``launch.serve --arch pixtral-12b
+   --smoke`` on the card, and the refusals of ``launch.serve`` for
+   whisper and ``launch.train`` for both, each asserted.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -2644,12 +2666,15 @@ def phase_smoke_serve(torch, dev):
 
 def attention_layers(cfg) -> int:
     """``decode_attention`` launches a decode step: one per GQA layer, one
-    per application of the hybrid's shared block, none under MLA or in an
+    per application of the hybrid's shared block, two per audio decoder
+    layer (self and cross attention), none under MLA or in an
     attention-free SSM."""
     if cfg.use_mla or cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -2734,9 +2759,8 @@ def _leaves(tree):
 def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
     """``--profile``: ``steps`` decode steps of the serve configuration
     after a 128-token prompt, under ``torch.profiler``: host ms and device
-    busy ms per step, the device's idle share, the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    busy ms per step, the device's idle share, the top kernels (see
+    ``profile_steps``, whose record it returns)."""
     from repro_torch.models import transformer as T
 
     B, P = prompts.shape
@@ -2745,12 +2769,26 @@ def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
         _, cache = T.decode_step(params, cfg, {"token": prompts[:, t]},
                                  cache, t)
     tok = prompts[:, -1]
+
+    def run():
+        for t in range(P, P + steps):
+            T.decode_step(params, cfg, {"token": tok}, cache, t)
+    return profile_steps(torch, run, steps)
+
+
+def profile_steps(torch, run, steps: int) -> dict:
+    """``run`` (``steps`` decode steps) under ``torch.profiler``: prints
+    host ms and device busy ms per step, the device's idle share, the top
+    device kernels and host rows; returns ms, busy ms and
+    ``cudaLaunchKernel`` calls a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(P, P + steps):
-            _, cache = T.decode_step(params, cfg, {"token": tok}, cache, t)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
 
@@ -2770,6 +2808,8 @@ def profile_decode(torch, dev, params, cfg, prompts, steps: int = 8):
                     reverse=True)[:8]:
         say(f"  host {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count / steps:7.1f}  {e.key[:80]}")
+    return dict(ms=wall, busy_ms=busy, launch_calls=sum(
+        e.count for e in host if e.key == "cudaLaunchKernel") / steps)
 
 
 def phase_long_decode(torch, dev, cfg=None):
@@ -5224,34 +5264,43 @@ def ssm_parity(torch, dev, arch: str) -> str:
 
 def ssm_train(torch, dev, mesh, arch: str, gen) -> tuple:
     """``arch`` at full width in bfloat16 (zamba2 cut to
-    ``HYBRID_TRAIN_LAYERS``): the report and ``sparse_aggregate`` at the
-    largest bucket's gradient == their plain versions, then
-    ``LM_STEPS`` steps of each ``MOE_PATHS`` path (``lm_full_width``).
-    Returns (the paths' launch counts, the report's and the aggregate's
-    records, the paths' records)."""
+    ``HYBRID_TRAIN_LAYERS``) through ``arch_train`` on
+    ``data.token_stream``'s batches."""
     from repro_torch.configs import get_config
-    from repro_torch.core.sparsify import bucket_budgets
     from repro_torch.data.pipeline import token_stream
-    from repro_torch.kernels import build
     from repro_torch.launch import train
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import flatten, value_and_grad
 
     full = get_config(arch)
     cfg = full.replace(remat=False)
     if cfg.family == "hybrid":
         cfg = cfg.replace(n_layers=HYBRID_TRAIN_LAYERS)
+    stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
+                          LM_TRAIN["seq"], seed=1)
+    batches = [train.to_device(next(stream), dev) for _ in range(LM_STEPS)]
+    return arch_train(torch, dev, mesh, cfg, full.n_layers, gen, batches)
+
+
+def arch_train(torch, dev, mesh, cfg, full_layers: int, gen,
+               batches) -> tuple:
+    """``cfg`` (of ``full_layers`` at full depth) in bfloat16 from one
+    ``T.init``: the report and ``sparse_aggregate`` at the largest
+    bucket's gradient (on ``batches[0]``) == their plain versions, then
+    ``LM_STEPS`` steps of each ``MOE_PATHS`` path on ``batches``
+    (``lm_full_width``). Returns (the paths' launch counts, the report's
+    and the aggregate's records, the paths' records)."""
+    from repro_torch.core.sparsify import bucket_budgets
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, value_and_grad
+
     t0 = time.perf_counter()
     base = T.init(cfg, gen)
     names = _leaf_names(base)
     leaves = flatten(base)[0]
     sizes = [p.numel() for p in leaves]
     budgets = bucket_budgets(sizes, LM_TRAIN["r"], LM_TRAIN["k"])
-    stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
-                          LM_TRAIN["seq"], seed=1)
-    batches = [train.to_device(next(stream), dev) for _ in range(LM_STEPS)]
-    say(f"ssm train: {cfg.name} at full width, {cfg.n_layers} of "
-        f"{full.n_layers} layers: {sum(sizes):,} params in {len(sizes)} "
+    say(f"train: {cfg.name} at full width, {cfg.n_layers} of "
+        f"{full_layers} layers: {sum(sizes):,} params in {len(sizes)} "
         f"leaves ({', '.join(sorted({str(p.dtype)[6:] for p in leaves}))}),"
         f" init {time.perf_counter() - t0:.1f} s; buckets (d, r_b, k_b): "
         + ", ".join(f"{n} ({d:,}, {r}, {k})"
@@ -5367,6 +5416,370 @@ def phase_ssm_hybrid(torch, dev, scratch: str) -> tuple:
                    "sparse_aggregate": aggregate, "serve": served,
                    "train": trained}
 
+# ---------------------------------------------------------------------------
+# 12: the VLM and audio families
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "pixtral-12b"
+AUDIO_ARCH = "whisper-large-v3"
+# decode_attention at the two archs' decode shapes, batch 8: (label, H, G,
+# D, positions, dtype). pixtral (rep 4, D 128): the serve cache at its end
+# and a longer one; whisper (rep 1, D 64): its 448 self positions and its
+# 1,500 cross positions (30 s of audio: 3,000 frames downsampled 2x), the
+# latter in float32 too
+VA_DA = [("pixtral-12b", 32, 8, 128, 160, "bfloat16"),
+         ("pixtral-12b", 32, 8, 128, 4096, "bfloat16"),
+         ("whisper-large-v3 self", 20, 20, 64, 448, "bfloat16"),
+         ("whisper-large-v3 cross", 20, 20, 64, 1500, "bfloat16"),
+         ("whisper-large-v3 cross", 20, 20, 64, 1500, "float32")]
+# card == CPU in float32 at full width: pixtral at 2 layers, whisper at 2
+# encoder and 2 decoder layers
+VA_PARITY_LAYERS = 2
+# pixtral-12b's training cut, 4 of 40 layers: 1,761,648,640 parameters by
+# param_count, about internlm2-1.8b's 1.70 B, which phase 6r trains at a
+# 54-68 GiB peak (5 layers would be 2.03 B; at full depth the stacked
+# mlp.w1 passes int32 from 30 layers); whisper-large-v3 trains at full depth
+VLM_TRAIN_LAYERS = 4
+# whisper's decode: 30 s of audio (3,000 frames, 1,500 encoder positions)
+# for a batch of 8, a 128-token prompt fed by decode steps, 32 greedy
+# tokens, then one step past its 448 target positions
+AUDIO_FRAMES = 3000
+
+
+def va_da_check(torch, dev, gen) -> list:
+    """``decode_attention`` at ``VA_DA``: against its plain version within
+    ``_da_close`` at cache_len 1, S - 13 and S, bitwise repeatable;
+    device times beside the bound, the plain version and
+    ``scaled_dot_product_attention``."""
+    recs = []
+    B = 8
+    for label, H, G, D, S, dtype in VA_DA:
+        dt, tol = getattr(torch, dtype), DA_TOL[dtype]
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, G, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, G, D), generator=gen, device=dev).to(dt)
+        err = max(_da_check(torch, q, k, v, clen, tol)[0]
+                  for clen in (1, S - 13, S))
+        cut, cut_text = _da_cut(q, k, v, S)
+        t = _da_times(torch, q, k, v, S, tol)
+        recs.append(dict(arch=label, B=B, H=H, G=G, D=D, S=S, dtype=dtype,
+                         rep=H // G, max_abs_err=err, splits=cut["splits"],
+                         tile_bytes=cut["tile_bytes"], **t))
+        say(f"  decode_attention {label} B={B} H={H} G={G} D={D} (rep "
+            f"{H // G}) S={S} {dtype} ({2 * k.numel() * k.element_size() / 1e6:.1f}"
+            f" MB of K and V): max_abs_err {err:.3e}; {cut_text}, kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
+            f"({t['bound_by']})")
+        del q, k, v
+    return recs
+
+
+def fill_cross(torch, params, cfg, frames, cache):
+    """The audio decode's cross caches, which neither package writes
+    (ROADMAP queue 3, fault 8), filled for the checks: the encoder's output
+    over ``frames`` through each decoder layer's cross ``wk`` / ``wv``, (B,
+    S_enc, G, D) a layer, no RoPE, as ``_cross_attn_seq`` projects it."""
+    from repro_torch.models import transformer as T
+
+    B, S = frames.shape[:2]
+    with torch.no_grad():
+        enc = T._encoder(params, cfg, frames)
+        p = params["layers"]["cross_attn"]
+        for i in range(cfg.n_layers):
+            for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                cache[name][i] = (enc @ p[w][i]).reshape(
+                    B, S, cfg.n_kv_heads, cfg.head_dim_)
+    return cache
+
+
+def va_parity(torch, dev, arch: str) -> str:
+    """``arch`` at full width in float32 with ``VA_PARITY_LAYERS`` layers
+    (whisper: as many encoder layers), from CPU-drawn parameters: 12 decode
+    steps card == CPU (logits within 1e-4, the greedy tokens equal,
+    every cache within 1e-5 at the end), from tokens, and for pixtral a
+    second pass from ``embed`` inputs; for whisper from cross caches that
+    ``fill_cross`` fills from the same frames on each device. Then
+    ``prefill`` card == CPU within 1e-4, and on the card the decode loop's
+    last logits == ``prefill`` over the same inputs within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=VA_PARITY_LAYERS,
+                                   dtype="float32", remat=False)
+    if cfg.family == "audio":
+        cfg = cfg.replace(encoder_layers=VA_PARITY_LAYERS)
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _tree_to(cpu, dev)
+    B, S = 2, 12
+    hg = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=hg)
+    if cfg.family == "vlm":
+        embeds = torch.randn((B, S, cfg.d_model), generator=hg)
+        passes = {"tokens": [{"token": toks[:, t]} for t in range(S)],
+                  "embeds": [{"embed": embeds[:, t]} for t in range(S)]}
+        pre = {"embeds": embeds}
+    else:
+        frames = torch.randn((B, 64, cfg.d_model), generator=hg)
+        passes = {"tokens": [{"token": toks[:, t]} for t in range(S)]}
+        pre = {"frames": frames, "tokens": toks}
+    done = []
+    for name, feeds in passes.items():
+        caches = [T.init_cache(cfg, B, 128, device=d) for d in ("cpu", dev)]
+        if cfg.family == "audio":
+            caches = [fill_cross(torch, cpu, cfg, frames, caches[0]),
+                      fill_cross(torch, card, cfg, frames.to(dev), caches[1])]
+        err = 0.0
+        for t, inp in enumerate(feeds):
+            with torch.no_grad():
+                lc, _ = T.decode_step(cpu, cfg, inp, caches[0], t)
+                lg, _ = T.decode_step(card, cfg, _tree_to(inp, dev),
+                                      caches[1], t)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+            if not torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)):
+                raise AssertionError(f"{arch} parity ({name}): greedy tokens "
+                                     f"differ at step {t}")
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+        for key in caches[0]:
+            torch.testing.assert_close(caches[1][key].cpu(), caches[0][key],
+                                       rtol=1e-5, atol=1e-5)
+        done.append(f"{S} decode steps from {name} card == CPU (max |logit "
+                    f"diff| {err:.3e})")
+        if name == "tokens" and cfg.family == "audio" or name == "embeds":
+            with torch.no_grad():
+                want = T.prefill(cpu, cfg, pre)
+                got = T.prefill(card, cfg, _tree_to(pre, dev))
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+            scale = max(1.0, float(got.abs().max()))
+            torch.testing.assert_close(lg, got, rtol=1e-4, atol=1e-4 * scale)
+            done.append(f"prefill over {'/'.join(pre)} card == CPU (max "
+                        f"|diff| {float((got.cpu() - want).abs().max()):.3e}"
+                        f"), == the decode loop's last logits on the card "
+                        f"(max |diff| {float((lg - got).abs().max()):.3e})")
+    return (f"{arch} (full width d {cfg.d_model}, {cfg.n_layers} layers"
+            + (f" and {cfg.encoder_layers} encoder layers, frames (2, 64, "
+               f"{cfg.d_model})" if cfg.family == "audio" else "")
+            + f", float32): " + "; ".join(done)
+            + f"; in {time.perf_counter() - t0:.1f} s")
+
+
+def audio_decode(torch, dev) -> tuple:
+    """whisper-large-v3 at full width and depth in bfloat16 (``launch.serve``
+    refuses audio, so through ``decode_step``): ``init_cache(cfg, 8,
+    AUDIO_FRAMES)`` (self caches of 448, cross caches of 1,500), the cross
+    caches filled (``fill_cross``) from random frames (8, 1,500, 1,280)
+    under ``no_grad``, a 128-token prompt fed by decode steps, then 32
+    greedy tokens: finite logits, ``decode_attention`` twice a layer a
+    step and no other kernel; host ms a step after a sync. Then the
+    clamps: a step at position 448 and one at 10,000 from copies of the
+    same self caches give equal logits (the learned position's row, RoPE,
+    the slot and cache_len all clamp to the last target position, as the
+    reference's gathers do). Then four steps under the profiler. Returns
+    (a record, the launches of the decode loop)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(AUDIO_ARCH).replace(remat=False)
+    B, P, GEN = 8, 128, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init(cfg, gen)
+    cache = T.init_cache(cfg, B, AUDIO_FRAMES)
+    frames = torch.randn((B, AUDIO_FRAMES // cfg.frontend_downsample,
+                          cfg.d_model), generator=gen, device=dev).bfloat16()
+    fill_cross(torch, params, cfg, frames, cache)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev)
+    build.reset_launches()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(P):
+            logits, _ = T.decode_step(params, cfg, {"token": prompts[:, t]},
+                                      cache, t)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks = []
+        t0 = time.perf_counter()
+        for t in range(P, P + GEN):
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, _ = T.decode_step(params, cfg, {"token": tok}, cache, t)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want = {k: (attention_layers(cfg) * (P + GEN) if k == "decode_attention"
+                else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"whisper decode: kernel launches {launches}, "
+                             f"expected {want}")
+    if not bool(finite) or logits.shape != (B, cfg.padded_vocab):
+        raise AssertionError("whisper decode: non-finite logits or a wrong "
+                             "shape")
+    tok = logits.argmax(-1)
+    past = []
+    for pos in (cfg.max_target_len, 10_000):
+        c = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+        with torch.no_grad():
+            past.append(T.decode_step(params, cfg, {"token": tok}, c, pos)[0])
+    if not (torch.equal(past[0], past[1]) and bool(torch.isfinite(
+            past[0]).all())):
+        raise AssertionError("whisper decode: steps past the 448 target "
+                             "positions do not clamp alike")
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    n_params = sum(w.numel() for w in _leaves(params))
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               setup_s=setup_s, prefill_s=prefill_s,
+               decode_tok_s=B * GEN / decode_s,
+               ms_per_step=decode_s / GEN * 1e3, peak_bytes=peak,
+               cache_bytes=cache_bytes, launches=launches)
+    say(f"audio decode {cfg.name}: {cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers d={cfg.d_model}, {n_params / 1e9:.3f} B params bfloat16 on "
+        f"{torch.cuda.get_device_name(0)}, batch {B}, {AUDIO_FRAMES} frames "
+        f"(init, encoder and cross caches {setup_s:.1f} s), prompt {P} by "
+        f"decode steps {prefill_s:.3f} s, {GEN} greedy tokens at "
+        f"{rec['decode_tok_s']:.1f} tokens/s over the batch "
+        f"({rec['ms_per_step']:.2f} ms a step), peak {peak / 2**30:.3f} GiB, "
+        f"cache {cache_bytes / 2**20:.1f} MiB ({'/'.join(cache)}), launches "
+        f"{ {k: v for k, v in launches.items() if v} } "
+        f"({attention_layers(cfg)} decode_attention a step); steps at "
+        f"positions {cfg.max_target_len} and 10,000 equal (clamped); first "
+        f"row "
+        f"{torch.stack(toks, 1)[0].tolist()}")
+
+    def run():
+        with torch.no_grad():
+            for pos in range(P + GEN, P + GEN + 4):
+                T.decode_step(params, cfg, {"token": tok}, cache, pos)
+    rec["profile"] = profile_steps(torch, run, 4)
+    del params, cache, frames
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def phase_vlm_audio(torch, dev, scratch: str) -> tuple:
+    """12: the VLM and audio families on the card. ``decode_attention`` at
+    pixtral's and whisper's decode shapes (``va_da_check``); each arch card
+    == CPU in float32 at full width (``va_parity``); pixtral-12b served
+    at full width and depth in bfloat16 (``serve_arch``, then four
+    profiled decode steps); whisper-large-v3 decoded at full width and
+    depth (``audio_decode``); each trained at full width (pixtral cut to
+    ``VLM_TRAIN_LAYERS``) through ``arch_train`` on
+    ``registry.concrete_batch`` batches (batch 8, seq 128) over a
+    world-size-1 NCCL group; ``launch.serve --arch pixtral-12b --smoke``
+    on the card, and the refusals of ``launch.serve`` for whisper and
+    ``launch.train`` for both. Returns (the phase's launch counts, the
+    records)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import concrete_batch
+
+    t_phase = time.perf_counter()
+    walls = {}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    da = va_da_check(torch, dev, gen)
+    torch.cuda.empty_cache()
+    walls["decode_attention"] = time.perf_counter() - t_phase
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        say(f"vlm/audio parity: {va_parity(torch, dev, arch)}")
+        torch.cuda.empty_cache()
+    walls["parity"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    total = {k: 0 for k in build.LAUNCHES}
+    cfg = get_config(VLM_ARCH)
+    rec, params, prompts, out = serve_arch(torch, dev, cfg)
+    total = {k: total[k] + v for k, v in rec["launches"].items()}
+    rec["profile"] = profile_decode(torch, dev, params, cfg, prompts[:, :8],
+                                    steps=4)
+    served = [rec]
+    del params, prompts, out
+    torch.cuda.empty_cache()
+    rec, launches = audio_decode(torch, dev)
+    total = {k: total[k] + v for k, v in launches.items()}
+    served.append(rec)
+    walls["serve"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    os.makedirs(scratch, exist_ok=True)
+    pg = os.path.join(scratch, "pg_file_vlm_audio")
+    if os.path.exists(pg):
+        os.remove(pg)
+    dist.init_process_group("nccl", init_method=f"file://{pg}", rank=0,
+                            world_size=1)
+    report, aggregate, trained = [], [], {}
+    shape = InputShape("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"],
+                       "train")
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch in (VLM_ARCH, AUDIO_ARCH):
+            full = get_config(arch)
+            cfg = full.replace(remat=False)
+            if cfg.family == "vlm":
+                cfg = cfg.replace(n_layers=VLM_TRAIN_LAYERS)
+            batches = [concrete_batch(cfg, shape, gen)
+                       for _ in range(LM_STEPS)]
+            say(f"vlm/audio train: {arch} batches "
+                + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
+                            for k, v in batches[0].items()))
+            launches, rep_, agg, runs = arch_train(
+                torch, dev, mesh, cfg, full.n_layers, gen, batches)
+            del batches
+            total = {k: total[k] + v for k, v in launches.items()}
+            report += rep_
+            aggregate += agg
+            trained[arch] = runs
+    finally:
+        dist.destroy_process_group()
+    walls["train"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    buf = io.StringIO()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", VLM_ARCH, "--smoke"])
+    total = {k: total[k] + v for k, v in build.LAUNCHES.items()}
+    lines = buf.getvalue().strip().splitlines()
+    if not lines[0].startswith(f"arch={VLM_ARCH} "):
+        raise AssertionError(f"serve --smoke {VLM_ARCH}: {lines}")
+    say(f"vlm/audio: `launch.serve --arch {VLM_ARCH} --smoke` on the card in "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+    refused = []
+    for mod, argv, kind, text in (
+            (serve, ["--arch", AUDIO_ARCH], SystemExit, "decoder-only"),
+            (train, ["--arch", VLM_ARCH, "--smoke"], ValueError, "fault 9"),
+            (train, ["--arch", AUDIO_ARCH, "--smoke"], ValueError,
+             "fault 9")):
+        try:
+            mod.main(argv)
+        except kind as e:
+            if text not in str(e):
+                raise
+            refused.append(f"`{mod.__name__.split('.')[-1]} "
+                           f"{' '.join(argv)}`: {e}")
+        else:
+            raise AssertionError(f"{mod.__name__} {argv} was not refused")
+    say("vlm/audio: refused, as asserted: " + "; ".join(refused))
+    walls["cli"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"vlm/audio: phase wall {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"); launches {total}")
+    return total, {"decode_attention": da, "threshold_topk_batch": report,
+                   "sparse_aggregate": aggregate, "serve": served,
+                   "train": trained}
+
 
 def _leaf_names(tree, prefix: str = "") -> list:
     """Leaf paths in ``jax.tree_util`` order, joined with '/'."""
@@ -5471,19 +5884,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm, ssm_recs = phase_ssm_hybrid(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    torch.cuda.empty_cache()
+    va, va_recs = phase_vlm_audio(torch, dev, os.path.join(
+        ROOT, "build", "lm_smoke"))
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
             launches, base, chunked, partial, compute, hier, resume,
             faults, async_fig3, age_mem, cifar, cifar_chunked, fig5_partial,
             fig5_hier, fig5_resume, fig5_async, cli, smoke, serve, long, lm,
-            fam, ssm))
+            fam, ssm, va))
         if k["name"] in lm_recs:
             k["lm_buckets"] = lm_recs[k["name"]]
         if k["name"] in fam_recs:
             k["families"] = fam_recs[k["name"]]
         if k["name"] in ssm_recs:
             k["ssm_hybrid"] = ssm_recs[k["name"]]
+        if k["name"] in va_recs:
+            k["vlm_audio"] = va_recs[k["name"]]
         if k["name"] == "segmented_age_topk":
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:

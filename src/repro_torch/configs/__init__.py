@@ -1,9 +1,8 @@
 """Config registry: ``get_config(name)``, ``get_smoke_config(name)`` and
 ``list_archs()``, with the arch ids of ``repro.configs``.
 
-Every id is listed; an arch whose config the port does not carry yet
-(the VLM and audio families) raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+Every id of the reference is listed, and the port carries each one's
+config.
 """
 from __future__ import annotations
 
@@ -20,17 +19,16 @@ from repro_torch.configs.base import (  # noqa: F401
     LONG_500K,
 )
 
-# arch id -> its config module, or, where the port does not carry it yet,
-# the ROADMAP item (queue 1) that brings it over
+# arch id -> its config module
 _ARCHS = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "gemma-2b": "gemma_2b",
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-780m": "mamba2_780m",
-    "whisper-large-v3": "item 16.7 (audio)",
+    "whisper-large-v3": "whisper_large_v3",
     "zamba2-2.7b": "zamba2_2_7b",
-    "pixtral-12b": "item 16.6 (VLM)",
+    "pixtral-12b": "pixtral_12b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",
     # the paper's own networks (FederatedEngine builds them directly)
@@ -46,10 +44,6 @@ def list_archs() -> list[str]:
 def _module(name: str):
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}")
-    if _ARCHS[name].startswith("item"):
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet: ROADMAP queue "
-            f"1, {_ARCHS[name]}")
     return importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
 
 

@@ -8,10 +8,13 @@
 ``--arch`` takes the dense ids (internlm2-1.8b, gemma-2b, phi4-mini-3.8b,
 qwen1.5-110b), the MoE ones (granite-moe-3b-a800m; deepseek-v2-236b,
 whose attention is MLA), the SSM one (mamba2-780m, whose decode step
-carries conv and SSM states and launches no attention kernel) and the
+carries conv and SSM states and launches no attention kernel), the
 hybrid one (zamba2-2.7b: its shared attention block, head dim 80, reads
-a K/V ring of the 8,192-position window); qwen1.5-110b and
-deepseek-v2-236b at full depth outgrow one 80 GB card. Weights are random from seed 0 (no
+a K/V ring of the 8,192-position window) and the VLM (pixtral-12b,
+served from tokens as the reference's CLI serves it); qwen1.5-110b and
+deepseek-v2-236b at full depth outgrow one 80 GB card. The audio arch
+(whisper-large-v3) is refused, as the reference refuses it: this demo
+serves decoder-only archs. Weights are random from seed 0 (no
 checkpoints are in the repository). Without ``--device`` it runs on the
 card and raises without one.
 """
@@ -95,8 +98,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    # the paper's nets are no LMs: refuse them before touching a device
-    T.require_ported(cfg)
+    # the paper's nets are no LMs, and the encoder-decoder is no demo of
+    # this loop: refuse them before touching a device
+    T.require_lm(cfg)
+    if cfg.family == "audio":
+        raise SystemExit("serve demo targets decoder-only archs")
     cfg = cfg.replace(remat=False)
     dev = resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,8 +1,11 @@
 """Step builders: the port of ``repro.launch.steps``'s ``make_train_step``,
-``make_prefill_step`` and ``make_decode_step``, for every family that
-``models.transformer`` ports (dense, MoE, SSM, hybrid): the SSM and
+``make_prefill_step`` and ``make_decode_step``, for every family of
+``models.transformer`` (dense, MoE, SSM, hybrid, VLM, audio): the SSM and
 hybrid decode steps write their conv and SSM states into the cache in
-place, as every family writes its K/V rows.
+place, as every family writes its K/V rows; a batch is any dict of
+tensors with the batch on its leading axis (``models.registry.
+input_specs``), so the VLM's embeddings and audio's frames split into
+microbatches as tokens do.
 
 The sharding-spec helpers of the reference (``batch_spec_tree``,
 ``cache_spec_tree``, ``param_sharding``, ``opt_sharding``) and the

@@ -11,8 +11,13 @@ layers, 1,699,842,048 parameters in bfloat16). ``--arch`` takes the dense,
 MoE, SSM (mamba2-780m) and hybrid (zamba2-2.7b) ids; an MoE arch's loss
 carries 0.01 * its load-balance term, and the SSM layers' float32
 ``A_log``, ``D``, ``dt_bias`` and ``gate_norm`` are buckets of their own
-dtype beside the bfloat16 ones. Weights are random from
-seed 0, the tokens ``data.token_stream``'s from seed 1. Without
+dtype beside the bfloat16 ones. The VLM (pixtral-12b) and audio
+(whisper-large-v3) archs are refused before a device is touched: their
+losses read ``embeds`` and ``frames``, which the token stream does not
+make, so the reference's CLI stops on them with a ``KeyError`` (ROADMAP
+queue 3, fault 9); ``models.registry.concrete_batch`` makes their
+batches for ``loss_fn`` and ``make_sync_train_step``. Weights are random
+from seed 0, the tokens ``data.token_stream``'s from seed 1. Without
 ``--device`` it runs on the card and raises without one. ``main(argv)``
 returns the losses of every step and the summed wire bytes.
 """
@@ -57,7 +62,13 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    T.require_ported(cfg)
+    T.require_lm(cfg)
+    if cfg.family in ("vlm", "audio"):
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family's loss reads "
+            f"{'embeds' if cfg.family == 'vlm' else 'frames'}, which the "
+            f"token stream does not make (the reference's CLI stops there "
+            f"with a KeyError: ROADMAP queue 3, fault 9)")
     cfg = cfg.replace(remat=False)
     dev = resolve(args.device)
     mesh = make_host_mesh(args.data_axis, 1, device=dev)

@@ -1,12 +1,20 @@
-"""The decoder-only LMs: the port of the dense, MoE, SSM and hybrid
-families of ``repro.models.transformer`` (parameter init, the training
-loss with its chunked cross entropy and MoE's load-balance term, the
-prefill forward, the KV, latent or state cache and the single-token
-decode step). A dense or MoE block's attention is GQA (``layers``) or
-MLA (``mla``, under ``cfg.use_mla``), and its FFN an MLP or a mixture of
-experts (``moe``, under ``cfg.is_moe``). An SSM block is a Mamba2 mixer
-(``ssm``); the hybrid family (Zamba2) runs ``attn_every`` of them, then
-one attention block whose weights every group shares.
+"""The LM zoo: the port of every family of ``repro.models.transformer``
+(parameter init, the training loss with its chunked cross entropy and
+MoE's load-balance term, the prefill forward, the KV, latent or state
+cache and the single-token decode step). A dense or MoE block's
+attention is GQA (``layers``) or MLA (``mla``, under ``cfg.use_mla``),
+and its FFN an MLP or a mixture of experts (``moe``, under
+``cfg.is_moe``). An SSM block is a Mamba2 mixer (``ssm``); the hybrid
+family (Zamba2) runs ``attn_every`` of them, then one attention block
+whose weights every group shares. The VLM family (Pixtral) is the dense
+stack fed embeddings (``embeds`` (B, S, d), a decode step's ``embed``
+(B, d)) where the others take tokens: its vision encoder is a stub in
+the reference too. The audio family (Whisper) is an encoder-decoder:
+the encoder over frame embeddings (B, S_enc, d) with sinusoid positions
+and non-causal self attention, the decoder over at most
+``max_target_len`` tokens with learned positions, causal self attention
+and cross attention to the encoder's output; its conv frontend is a
+stub in the reference too.
 
 API (see registry.py):
   init(cfg, generator, device=None)             -> params
@@ -21,9 +29,9 @@ leaf for leaf (the hybrid's ``shared`` block unstacked). Layers run in
 a Python loop. The loss's gradient is plain autograd, as the reference's
 is plain autodiff (nothing in its ``models/`` has a custom VJP).
 ``decode_step`` writes the new K/V (or latent) rows and the SSM states
-into the cache in place and returns the same cache. The VLM and audio
-families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+into the cache in place and returns the same cache. The audio decode
+step reads its cross K/V caches and never writes them, as the
+reference's: nothing in either package fills them from the encoder.
 """
 from __future__ import annotations
 
@@ -36,21 +44,14 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-# family -> the ROADMAP item (queue 1) that ports it
-_UNPORTED = {
-    "vlm": "item 16.6 (VLM)",
-    "audio": "item 16.7 (audio)",
-}
+_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def require_ported(cfg) -> None:
-    """Raise unless ``cfg`` is a dense, MoE, SSM or hybrid decoder."""
+def require_lm(cfg) -> None:
+    """Raise unless ``cfg`` is one of the zoo's LM families (the hybrid
+    one in whole groups)."""
     kind = cfg.family
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} family is not ported to repro_torch "
-            f"yet: ROADMAP queue 1, {_UNPORTED[kind]}")
-    if kind not in ("dense", "moe", "ssm", "hybrid"):
+    if kind not in _LM_FAMILIES:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not an LM "
                          f"(the paper nets live in models/paper_nets.py)")
     if kind == "hybrid" and (cfg.attn_every < 1
@@ -90,6 +91,24 @@ def _ssm_block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
             "ssm": SSM.ssm_params(gen, cfg, lead)}
 
 
+def _enc_block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
+    dev = gen.device
+    return {"ln1": L.norm_params(cfg, lead, dev),
+            "attn": L.attention_params(gen, cfg, lead),
+            "ln2": L.norm_params(cfg, lead, dev),
+            "mlp": L.mlp_params(gen, cfg, lead)}
+
+
+def _dec_block_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
+    dev = gen.device
+    return {"ln1": L.norm_params(cfg, lead, dev),
+            "self_attn": L.attention_params(gen, cfg, lead),
+            "ln2": L.norm_params(cfg, lead, dev),
+            "cross_attn": L.attention_params(gen, cfg, lead),
+            "ln3": L.norm_params(cfg, lead, dev),
+            "mlp": L.mlp_params(gen, cfg, lead)}
+
+
 def _indexed(dev: torch.device) -> torch.device:
     """``cuda`` as the current card's index, so that devices compare."""
     if dev.type == "cuda" and dev.index is None:
@@ -100,7 +119,7 @@ def _indexed(dev: torch.device) -> torch.device:
 def init(cfg, generator: torch.Generator, device=None) -> dict:
     """Random parameters drawn from ``generator`` on ``device`` (None means
     the card); the generator must live on that device."""
-    require_ported(cfg)
+    require_lm(cfg)
     dev = _indexed(resolve(device))
     if _indexed(generator.device) != dev:
         raise ValueError(f"init: the generator is on {generator.device}, "
@@ -114,6 +133,14 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     }
     if cfg.family in ("ssm", "hybrid"):
         params["layers"] = _ssm_block_params(generator, cfg, lead)
+    elif cfg.family == "audio":
+        params["enc_layers"] = _enc_block_params(generator, cfg,
+                                                 (cfg.encoder_layers,))
+        params["layers"] = _dec_block_params(generator, cfg, lead)
+        params["enc_norm"] = L.norm_params(cfg, device=generator.device)
+        params["dec_pos"] = {"w": (torch.randn(
+            (cfg.max_target_len, cfg.d_model), generator=generator,
+            device=generator.device) * 0.02).to(dtype)}
     else:
         params["layers"] = _block_params(generator, cfg, lead)
     if cfg.family == "hybrid":
@@ -129,14 +156,17 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _attn_seq(p, cfg, x, positions):
+def _attn_seq(p, cfg, x, positions, causal: bool = True):
+    """Self attention over x (B, S, d), RoPE at ``positions``, in the
+    encoder's self attention too (on top of its sinusoid), as the
+    reference applies it."""
     if cfg.use_mla:
         return MLA.mla_prefill(p, cfg, x, positions)[0]
     B, S, _ = x.shape
     q, k, v = L.qkv(p, cfg, x)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    o = L.flash_attention(q, k, v, window=cfg.sliding_window)
+    o = L.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim_) @ p["wo"]
 
 
@@ -208,6 +238,69 @@ def _backbone(params, cfg, x, positions):
     return x, {"lb_loss": lb / cfg.n_layers, "drop_frac": drop}
 
 
+def _sinusoid(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) float32 positions: sin of pos / 10000^(2i/d) in the first
+    d/2 columns, cos in the rest."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _enc_block_seq(p, cfg, x, positions):
+    h = L.apply_norm(p["ln1"], cfg, x)
+    x = x + _attn_seq(p["attn"], cfg, h, positions, causal=False)
+    h = L.apply_norm(p["ln2"], cfg, x)
+    return x + L.apply_mlp(p["mlp"], cfg, h)
+
+
+def _encoder(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The Whisper encoder over stub frame embeddings (B, S_enc, d), a
+    checkpoint a layer under ``cfg.remat``; returns the normed output."""
+    _, S, d = frames.shape
+    x = frames + _sinusoid(S, d, frames.device).to(frames.dtype)[None]
+    positions = torch.arange(S, device=frames.device)
+    for i in range(cfg.encoder_layers):
+        x = _remat(_enc_block_seq, cfg, _layer(params["enc_layers"], i),
+                   cfg, x, positions)
+    return L.apply_norm(params["enc_norm"], cfg, x)
+
+
+def _cross_attn_seq(p, cfg, x, enc):
+    """Attention of x (B, S, d) to the encoder's output (B, S_enc, d): no
+    RoPE, no bias, no mask."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (enc @ p["wk"]).reshape(B, enc.shape[1], cfg.n_kv_heads, hd)
+    v = (enc @ p["wv"]).reshape(B, enc.shape[1], cfg.n_kv_heads, hd)
+    o = L.flash_attention(q, k, v, causal=False)
+    return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+
+
+def _dec_block_seq(p, cfg, x, positions, enc):
+    h = L.apply_norm(p["ln1"], cfg, x)
+    x = x + _attn_seq(p["self_attn"], cfg, h, positions)
+    h = L.apply_norm(p["ln2"], cfg, x)
+    x = x + _cross_attn_seq(p["cross_attn"], cfg, h, enc)
+    h = L.apply_norm(p["ln3"], cfg, x)
+    return x + L.apply_mlp(p["mlp"], cfg, h)
+
+
+def _decoder_encdec(params, cfg, tokens: torch.Tensor, enc: torch.Tensor):
+    """The Whisper decoder over tokens (B, S <= max_target_len), learned
+    positions, a checkpoint a layer under ``cfg.remat``; returns the
+    hidden states after ``norm_f``."""
+    S = tokens.shape[1]
+    x = params["embed"]["w"][tokens.to(torch.int64)] \
+        + params["dec_pos"]["w"][None, :S]
+    positions = torch.arange(S, device=x.device)
+    for i in range(cfg.n_layers):
+        x = _remat(_dec_block_seq, cfg, _layer(params["layers"], i), cfg, x,
+                   positions, enc)
+    return L.apply_norm(params["norm_f"], cfg, x)
+
+
 def _unembed_w(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"]["w"].T          # (d, Vp)
@@ -245,12 +338,30 @@ def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     return tot / (B * S)
 
 
+def _embed_in(params, cfg, batch) -> torch.Tensor:
+    """The stack's input (B, S, d): the VLM's ``embeds`` as handed in,
+    else the embedding of ``tokens``."""
+    if cfg.family == "vlm":
+        return batch["embeds"]
+    return params["embed"]["w"][batch["tokens"].to(torch.int64)]
+
+
 def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
-    """batch: {"tokens", "labels"} (B, S) ints -> (mean next-token cross
-    entropy, plus 0.01 * lb_loss under MoE; aux). aux holds the
-    reference's MoE terms (``_backbone``), zero for an MLP model."""
-    require_ported(cfg)
-    x = params["embed"]["w"][batch["tokens"].to(torch.int64)]
+    """batch: {"tokens", "labels"} (B, S) ints; the VLM's {"embeds" (B, S,
+    d), "labels"}; audio's {"frames" (B, S_enc, d), "tokens", "labels"
+    (B, S_dec)} -> (mean next-token cross entropy, plus 0.01 * lb_loss
+    under MoE; aux). aux holds the reference's MoE terms (``_backbone``),
+    zero for an MLP model; audio's is {"lb_loss": 0}, as the
+    reference's."""
+    require_lm(cfg)
+    if cfg.family == "audio":
+        enc = _encoder(params, cfg, batch["frames"])
+        h = _decoder_encdec(params, cfg, batch["tokens"], enc)
+        loss = chunked_xent(h, _unembed_w(params, cfg), batch["labels"],
+                            cfg.vocab_size)
+        return loss, {"lb_loss": torch.zeros((), dtype=torch.float32,
+                                             device=h.device)}
+    x = _embed_in(params, cfg, batch)
     h, aux = _backbone(params, cfg, x,
                        torch.arange(x.shape[1], device=x.device))
     h = L.apply_norm(params["norm_f"], cfg, h)
@@ -267,14 +378,18 @@ def _logits(params, cfg, h):
 
 
 def prefill(params, cfg, inputs) -> torch.Tensor:
-    """Forward pass over ``inputs["tokens"]`` (B, S); returns the last
-    token's logits (B, Vp) in float32."""
-    require_ported(cfg)
-    tokens = inputs["tokens"].to(torch.int64)
-    x = params["embed"]["w"][tokens]
-    h, _ = _backbone(params, cfg, x,
-                     torch.arange(x.shape[1], device=x.device))
-    h = L.apply_norm(params["norm_f"], cfg, h)
+    """Forward pass over ``inputs["tokens"]`` (B, S) (the VLM's
+    ``embeds``; audio's ``frames`` and decoder ``tokens``); returns the
+    last position's logits (B, Vp) in float32."""
+    require_lm(cfg)
+    if cfg.family == "audio":
+        enc = _encoder(params, cfg, inputs["frames"])
+        h = _decoder_encdec(params, cfg, inputs["tokens"], enc)
+    else:
+        x = _embed_in(params, cfg, inputs)
+        h, _ = _backbone(params, cfg, x,
+                         torch.arange(x.shape[1], device=x.device))
+        h = L.apply_norm(params["norm_f"], cfg, h)
     return _logits(params, cfg, h[:, -1])
 
 
@@ -292,12 +407,22 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     batch, K-1, d_inner + 2 n) in the model dtype and state (n_layers,
     batch, nh, hp, n) in float32; the hybrid's those and K/V for each
     application of the shared block, (n_layers / attn_every, batch, S, G,
-    head_dim)."""
-    require_ported(cfg)
+    head_dim). Audio's: self K/V (n_layers, batch, max_target_len, G,
+    head_dim), whatever max_len, and cross K/V (n_layers, batch, max_len
+    // frontend_downsample, G, head_dim), max_len counting input frames
+    as the reference's does."""
+    require_lm(cfg)
     dev = resolve(device)
     dtype = L.dtype_of(cfg)
     S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     cache = {}
+    if cfg.family == "audio":
+        kv = (cfg.n_kv_heads, cfg.head_dim_)
+        shapes = {"k": cfg.max_target_len, "v": cfg.max_target_len,
+                  "cross_k": max_len // cfg.frontend_downsample,
+                  "cross_v": max_len // cfg.frontend_downsample}
+        return {name: torch.zeros((cfg.n_layers, batch, n, *kv), dtype=dtype,
+                                  device=dev) for name, n in shapes.items()}
     if cfg.family in ("ssm", "hybrid"):
         cache = {
             "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
@@ -341,13 +466,18 @@ def _attn_decode(p, cfg, x, k_cache, v_cache, pos: int):
 
 
 def decode_step(params, cfg, inputs, cache, pos: int):
-    """One decode step. inputs: {"token": (B,) int}; pos: the host int
+    """One decode step. inputs: {"token": (B,) int} or, in any family,
+    {"embed": (B, d)}, which is taken where present; pos: the host int
     position of this token. Returns ((B, Vp) float32 logits, cache), the
     cache updated in place."""
-    require_ported(cfg)
-    x = params["embed"]["w"][inputs["token"].to(torch.int64)][:, None, :]
-    if cfg.family in ("ssm", "hybrid"):
-        x = _ssm_decode(params, cfg, x, cache, pos)
+    require_lm(cfg)
+    if "embed" in inputs:
+        x = inputs["embed"][:, None, :]
+    else:
+        x = params["embed"]["w"][inputs["token"].to(torch.int64)][:, None, :]
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        decode = _audio_decode if cfg.family == "audio" else _ssm_decode
+        x = decode(params, cfg, x, cache, pos)
         x = L.apply_norm(params["norm_f"], cfg, x)
         return _logits(params, cfg, x[:, 0]), cache
     for i in range(cfg.n_layers):
@@ -386,3 +516,33 @@ def _ssm_decode(params, cfg, x, cache, pos: int):
             a = L.apply_norm(shared["ln2"], cfg, x)
             x = x + L.apply_mlp(shared["mlp"], cfg, a)
     return x
+
+
+def _audio_decode(params, cfg, x, cache, pos: int):
+    """The Whisper decoder's step. Positions past ``max_target_len`` - 1
+    clamp to it, as the reference's gathers and slot writes clamp: the
+    learned position's row, RoPE, the self K/V slot, and a cache_len of
+    at most ``max_target_len``. Cross attention runs through
+    ``decode_attention`` over the whole cross cache, read as it stands."""
+    last = min(pos, cfg.max_target_len - 1)
+    x = x + params["dec_pos"]["w"][last][None, None, :]
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        a = L.apply_norm(p["ln1"], cfg, x)
+        x = x + _attn_decode(p["self_attn"], cfg, a, cache["k"][i],
+                             cache["v"][i], last)
+        a = L.apply_norm(p["ln2"], cfg, x)
+        x = x + _cross_attn_decode(p["cross_attn"], cfg, a,
+                                   cache["cross_k"][i], cache["cross_v"][i])
+        a = L.apply_norm(p["ln3"], cfg, x)
+        x = x + L.apply_mlp(p["mlp"], cfg, a)
+    return x
+
+
+def _cross_attn_decode(p, cfg, x, k_cache, v_cache):
+    """x (B, 1, d) attends to the (B, S_enc, G, hd) cross caches: q with
+    no RoPE and no bias, every position valid."""
+    B = x.shape[0]
+    q = (x[:, 0] @ p["wq"]).reshape(B, cfg.n_heads, cfg.head_dim_)
+    o = L.decode_attention(q, k_cache, v_cache, k_cache.shape[1])
+    return o.reshape(B, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"]

@@ -1,17 +1,23 @@
 """An LM arch's smoke config in the port against the JAX package, for the
 family test modules (``tests/test_torch_dense_archs.py``,
 ``test_torch_moe.py``, ``test_torch_mla.py``, ``test_torch_ssm.py``,
-``test_torch_hybrid.py``).
+``test_torch_hybrid.py``, ``test_torch_vlm.py``, ``test_torch_audio.py``).
 
 :func:`reference` runs the reference once for a module fixture: its
 ``T.init(cfg, PRNGKey(0))`` parameters (QKV biases made nonzero, since
-both packages start them at 0), the greedy serve loop of decode steps,
-``prefill`` and ``loss_fn`` with its gradient; the ``check_*`` functions
-hold the port, started from the same parameters carried across by
-``weights.params_from_jax``, to each. A module may hand ``reference``
-config fields to replace in both packages' smoke configs (a sliding
-window), and tolerances that replace the defaults below for its family,
-each stated with its reason in that module's docstring.
+both packages start them at 0), the greedy serve loop of decode steps
+(not for audio, whose module runs its own loops through
+:func:`jax_feed`), the VLM's decode loop from ``embed`` inputs,
+``prefill`` and ``loss_fn`` with its gradient on the family's inputs
+(:func:`model_inputs`: tokens; the VLM's embeddings; audio's frames and
+decoder tokens); the ``check_*`` functions hold the port, started from
+the same parameters carried across by ``weights.params_from_jax``, to
+each. A module may hand ``reference`` config fields to replace in both
+packages' smoke configs (a sliding window), and tolerances that replace
+the defaults below for its family, each stated with its reason in that
+module's docstring. Float inputs are made in float32 with numpy and
+rounded to the model dtype by each package (both round to nearest even,
+so both get the same values).
 
 Tolerances, each with its reason (the levels of ``tests/test_torch_lm.py``
 and ``tests/test_torch_lm_train.py``). Logits are held within tol
@@ -53,6 +59,7 @@ from repro.optim import optimizers as JO
 
 from repro_torch import tree
 from repro_torch.configs import get_smoke_config
+from repro_torch.dist import sparse_sync as TS
 from repro_torch.launch import serve
 from repro_torch.models import transformer as TT
 from repro_torch.weights import params_from_jax
@@ -92,6 +99,43 @@ def carry(jtree):
 def tokens(shape, seed):
     return np.random.default_rng(seed).integers(0, 512, shape).astype(
         np.int32)
+
+
+def model_inputs(cfg, b: int, s: int, seed: int, train: bool = False,
+                 s_dec: int | None = None) -> dict:
+    """numpy inputs of ``loss_fn`` (``train``) or ``prefill``: tokens (b,
+    s); the VLM's embeds (b, s, d), standard normal; audio's frames (b,
+    s, d) and decoder tokens (b, ``s_dec``); labels of the tokens'
+    shape."""
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    if cfg.family == "vlm":
+        out, lab = {"embeds": rng.standard_normal((b, s, d))}, (b, s)
+    elif cfg.family == "audio":
+        out = {"frames": rng.standard_normal((b, s, d)),
+               "tokens": rng.integers(0, 512, (b, s_dec))}
+        lab = (b, s_dec)
+    else:
+        out, lab = {"tokens": rng.integers(0, 512, (b, s))}, (b, s)
+    if train:
+        out["labels"] = rng.integers(0, 512, lab)
+    return {k: v.astype(np.int32 if v.dtype.kind == "i" else np.float32)
+            for k, v in out.items()}
+
+
+def to_j(arrays: dict, dtype: str) -> dict:
+    """numpy inputs as the reference's: floats rounded to ``dtype``."""
+    return {k: jnp.asarray(v).astype(jnp.dtype(dtype))
+            if v.dtype.kind == "f" else jnp.asarray(v)
+            for k, v in arrays.items()}
+
+
+def to_t(arrays: dict, dtype: str) -> dict:
+    """numpy inputs as the port's (fresh tensors): floats rounded to
+    ``dtype``."""
+    return {k: torch.from_numpy(v.copy()).to(getattr(torch, dtype))
+            if v.dtype.kind == "f" else torch.from_numpy(v.copy())
+            for k, v in arrays.items()}
 
 
 def to_jax(params):
@@ -149,6 +193,20 @@ def _nonzero_biases(jparams, dtype, seed=21):
     return {**jparams, "layers": {**jparams["layers"], "attn": attn}}
 
 
+def jax_feed(jcfg, jparams, feeds, cache) -> list:
+    """The reference's jitted ``decode_step`` fed ``feeds`` (numpy input
+    dicts, one a step) from ``cache`` (its own tree): per step (logits,
+    cache) as numpy."""
+    step = jax.jit(lambda p, inp, c, pos: JT.decode_step(p, jcfg, inp, c,
+                                                         pos))
+    out = []
+    for t, inp in enumerate(feeds):
+        logits, cache = step(jparams, to_j(inp, jcfg.dtype), cache, t)
+        out.append((np.asarray(logits),
+                    {k: np_(v) for k, v in cache.items()}))
+    return out
+
+
 def _jax_loop(jcfg, jparams, prompts, gen):
     """The reference serve loop (greedy): per step (logits, cache), the
     generated tokens and the tokens fed."""
@@ -182,28 +240,39 @@ def reference(arch: str, dtype: str, tol: dict | None = None,
     if jcfg.qkv_bias:
         jparams = _nonzero_biases(jparams, dtype)
     prompts = tokens((B, P), 12)
-    steps, toks, fed = _jax_loop(jcfg, jparams, prompts, GEN)
-    pre_toks = tokens((B, 12), 13)
-    pre = jax.jit(lambda p, t: JT.prefill(p, jcfg, {"tokens": t}))(
-        jparams, jnp.asarray(pre_toks))
-    rng = np.random.default_rng(0)
-    batch = {k: rng.integers(0, 512, (B, S_LOSS)).astype(np.int32)
-             for k in ("tokens", "labels")}
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    steps = toks = fed = embed_run = None
+    if jcfg.family != "audio":
+        steps, toks, fed = _jax_loop(jcfg, jparams, prompts, GEN)
+    if jcfg.family == "vlm":
+        e = np.random.default_rng(14).standard_normal(
+            (B, P + GEN, jcfg.d_model)).astype(np.float32)
+        feeds = [{"embed": e[:, t]} for t in range(P + GEN)]
+        embed_run = dict(feeds=feeds, steps=jax_feed(
+            jcfg, jparams, feeds, JT.init_cache(jcfg, B, P + GEN)))
+    pre_in = model_inputs(jcfg, B, 12, 13, s_dec=12)
+    pre = jax.jit(lambda p, b: JT.prefill(p, jcfg, b))(
+        jparams, to_j(pre_in, dtype))
+    batch = model_inputs(jcfg, B, S_LOSS, 0, train=True,
+                         s_dec=jcfg.max_target_len)
+    jbatch = to_j(batch, dtype)
     (loss, aux), grads = jax.jit(jax.value_and_grad(
         lambda p, b: JT.loss_fn(p, jcfg, b), has_aux=True))(jparams, jbatch)
     if dtype != "float32":
         c32 = jcfg.replace(dtype="float32")
+
+        def f32(a):
+            return a.astype(jnp.float32) if jnp.issubdtype(
+                a.dtype, jnp.floating) else a
         _, grads = jax.jit(jax.value_and_grad(
             lambda p, b: JT.loss_fn(p, c32, b), has_aux=True))(
-            jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
-                                   jparams), jbatch)
+            jax.tree_util.tree_map(f32, jparams),
+            jax.tree_util.tree_map(f32, jbatch))
     return dict(arch=arch, dtype=dtype, tol={**TOL[dtype], **(tol or {})},
                 jcfg=jcfg, tcfg=tcfg,
                 jparams=jparams, tparams=carry(jparams), prompts=prompts,
-                steps=steps, toks=toks, fed=fed, pre_toks=pre_toks,
-                prefill=np.asarray(pre),
-                batch={k: torch.from_numpy(v) for k, v in batch.items()},
+                steps=steps, toks=toks, fed=fed, embed_run=embed_run,
+                pre_in=pre_in, prefill=np.asarray(pre),
+                batch=to_t(batch, dtype), batch_np=batch,
                 loss=float(loss), aux={k: float(v) for k, v in aux.items()},
                 grads=jax.tree_util.tree_leaves(grads))
 
@@ -231,14 +300,20 @@ def check_init_tree(ref):
 def check_decode_loop(ref):
     """P + GEN decode steps from the same tokens: logits and every cache
     at every step; in float32 the greedy tokens too."""
+    check_feed_loop(ref, [{"token": tok} for tok in ref["fed"]],
+                    ref["steps"], TT.init_cache(ref["tcfg"], B, P + GEN,
+                                                device="cpu"))
+
+
+def check_feed_loop(ref, feeds, steps, cache):
+    """The port's ``decode_step`` fed ``feeds`` (numpy input dicts) from
+    ``cache`` against the reference's ``steps`` (:func:`jax_feed`):
+    logits and every cache at every step; in float32 the argmax too."""
     tcfg, tol = ref["tcfg"], ref["tol"]
-    cache = TT.init_cache(tcfg, B, P + GEN, device="cpu")
-    assert set(cache) == set(ref["steps"][0][1])
-    for t, (tok, (jlogits, jcache)) in enumerate(zip(ref["fed"],
-                                                     ref["steps"])):
+    assert set(cache) == set(steps[0][1])
+    for t, (inp, (jlogits, jcache)) in enumerate(zip(feeds, steps)):
         logits, cache = TT.decode_step(ref["tparams"], tcfg,
-                                       {"token": torch.from_numpy(tok)},
-                                       cache, t)
+                                       to_t(inp, ref["dtype"]), cache, t)
         assert logits.dtype == torch.float32
         assert logits.shape == (B, tcfg.padded_vocab)
         close_logits(logits, jlogits, tol["logits"], f"logits, step {t}")
@@ -276,7 +351,7 @@ def check_generate(ref):
 
 def check_prefill(ref):
     got = TT.prefill(ref["tparams"], ref["tcfg"],
-                     {"tokens": torch.from_numpy(ref["pre_toks"])})
+                     to_t(ref["pre_in"], ref["dtype"]))
     assert got.dtype == torch.float32
     close_logits(got, ref["prefill"], ref["tol"]["logits"])
 
@@ -287,17 +362,20 @@ def check_decode_matches_own_prefill(ref):
     activations differently).
     Under MoE at a capacity that drops nothing (cf E / K: C >= T), since
     a decode step routes B tokens against its own capacity and the
-    forward pass B * S, whose drops a decode step never makes."""
+    forward pass B * S, whose drops a decode step never makes. The VLM's
+    steps take the prefill's embeddings, one ``embed`` a step."""
     tcfg = ref["tcfg"]
     if tcfg.is_moe:
         tcfg = tcfg.replace(
             capacity_factor=tcfg.n_experts / tcfg.experts_per_token)
-    toks = torch.from_numpy(ref["pre_toks"])
-    full = TT.prefill(ref["tparams"], tcfg, {"tokens": toks})
-    cache = TT.init_cache(tcfg, B, toks.shape[1], device="cpu")
-    for t in range(toks.shape[1]):
+    inputs = to_t(ref["pre_in"], ref["dtype"])
+    full = TT.prefill(ref["tparams"], tcfg, inputs)
+    seq = inputs["embeds" if tcfg.family == "vlm" else "tokens"]
+    name = "embed" if tcfg.family == "vlm" else "token"
+    cache = TT.init_cache(tcfg, B, seq.shape[1], device="cpu")
+    for t in range(seq.shape[1]):
         logits, cache = TT.decode_step(ref["tparams"], tcfg,
-                                       {"token": toks[:, t]}, cache, t)
+                                       {name: seq[:, t]}, cache, t)
     close_logits(logits, full, ref["tol"]["logits"])
 
 
@@ -331,3 +409,38 @@ def check_loss(ref):
                 g, w, atol=tol["grad"] * np.abs(w).max(), rtol=0)
         rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
         assert rel <= tol["grad_rel"], rel
+
+
+def check_sync_grads(arch: str, r: int, k: int):
+    """One ``sync_grads`` call (rage_k on the threshold plane) on the
+    reference's bfloat16 smoke-config gradient of a :func:`model_inputs`
+    batch (B 2, seq 32) against its jitted ``make_sync_train_step`` (read
+    through a linear loss and SGD at lr 1 from zeros, as
+    ``tests/test_torch_sparse_sync.py`` reads it): synced values, ages
+    and wire bytes equal, each bucket in its own dtype. Returns the
+    carried gradient."""
+    cfg = j_smoke_config(arch).replace(dtype="bfloat16", remat=False)
+    params = JT.init(cfg, jax.random.PRNGKey(0))
+    batch = to_j(model_inputs(cfg, 2, 32, 0, train=True,
+                              s_dec=cfg.max_target_len), "bfloat16")
+    jg = jax.jit(jax.grad(lambda p, b: JT.loss_fn(p, cfg, b)[0]))(params,
+                                                                  batch)
+    tg = carry(jg)
+    kw = dict(method="rage_k", r=r, k=k, candidates="threshold")
+    opt = JO.sgd(1.0)
+    step = jax.jit(JS.make_sync_train_step(
+        lambda p, b: sum(jnp.sum(a * c) for a, c in zip(
+            jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(b))),
+        opt, None, **kw))
+    p0 = jax.tree_util.tree_map(jnp.zeros_like, jg)
+    p1, _, jages, _, jst = step(p0, opt.init(p0), JS.init_age_state(jg), jg)
+    tsyn, tages, tst = TS.sync_grads(tg, TS.init_age_state(tg), **kw)
+    for got, want in ((tsyn, jax.tree_util.tree_map(lambda x: -x, p1)),
+                      (tages, jages)):
+        for a, b in zip(tree.leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(np_(a), np.asarray(b).astype(
+                np_(a).dtype))
+    assert tst["wire_bytes_per_shard"] == int(jst["wire_bytes_per_shard"])
+    assert [a.dtype for a in tree.leaves(tsyn)] == \
+        [a.dtype for a in tree.leaves(tg)]
+    return tg

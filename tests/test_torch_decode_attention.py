@@ -4,7 +4,10 @@ On the CPU ``repro_torch.kernels.ops.decode_attention`` runs the kernel's
 plain version; it is held against the Pallas kernel (interpret mode,
 through ``repro.kernels.ops.decode_attention``) at the shapes of
 ``tests/test_kernels.py``'s sweep, with cache_len at 0, 1, S - 13 and S,
-on inputs made from a seed with numpy. Tolerances: rtol float32 2e-5
+on inputs made from a seed with numpy, and, with cache_len 1, S - 13 and S,
+at the VLM's and audio family's full-width decode shapes (pixtral-12b's
+rep 4 at D 128; whisper-large-v3's rep 1 at D 64 over 448 and 1,500
+positions). Tolerances: rtol float32 2e-5
 (both sum float32 products, in another order); bfloat16 2e-2, the
 sweep's own (both compute in float32 from the same bfloat16 inputs, so
 outputs differ by at most one bfloat16 step, 2^-8 of |o|); atol the
@@ -111,6 +114,33 @@ def test_matches_model_layer(jax_ref, dtype, tol, clen):
     want = JL.decode_attention(jq, jk, jv, clen)
     got = ops.decode_attention(tq, tk, tv, clen)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+# the VLM's and audio family's full-width decode shapes: pixtral-12b (H 32,
+# G 8: rep 4, D 128) over its serve cache and whisper-large-v3 (H = G =
+# 20: rep 1, D 64) over its 448 self positions and 1,500 cross positions
+# (30 s of audio, downsampled 2x); B 1, since the Pallas kernel's interpret
+# mode takes most of a second a call at 1,500 positions
+FAMILY_SHAPES = [(32, 8, 128, 160), (20, 20, 64, 448), (20, 20, 64, 1500)]
+
+
+@pytest.mark.parametrize("H,G,D,S", FAMILY_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_family_shapes_match_pallas_kernel(jax_ref, H, G, D, S, dtype):
+    """The plain version and the split-and-combine (2 and 3 splits)
+    against the Pallas kernel in interpret mode at cache_len 1, S - 13
+    and S, at the sweep's tolerances."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, H, G, D, S, S + D), dtype)
+    tol = DTYPES[dtype][1]
+    for clen in (1, S - 13, S):
+        want = _f32(jops.decode_attention(jq, jk, jv, clen))
+        for got in (ops.decode_attention(tq, tk, tv, clen),
+                    DA.decode_attention_split_plain(tq, tk, tv, clen, 2),
+                    DA.decode_attention_split_plain(tq, tk, tv, clen, 3)):
+            assert got.dtype == tq.dtype and got.shape == (1, H, D)
+            np.testing.assert_allclose(_f32(got), want, rtol=tol,
+                                       atol=_atol(want, tol),
+                                       err_msg=f"cache_len={clen}")
 
 
 SPLITS = [1, 2, 3, 7]
@@ -281,7 +311,8 @@ def cuda():
                                              (16, 1, 32, 1000),
                                              (8, 8, 32, 4099),
                                              (8, 2, 80, 1000),
-                                             (32, 32, 80, 8192)])
+                                             (32, 32, 80, 8192)]
+                         + FAMILY_SHAPES + [(32, 8, 128, 4096)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain(cuda, H, G, D, S, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype][0])

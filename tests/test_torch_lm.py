@@ -378,20 +378,6 @@ def test_registry_lists_every_reference_arch():
     assert get_model(get_config(ARCH)).decode_step is TT.decode_step
 
 
-# the archs whose configs the port does not carry yet: the audio and VLM
-# families (ROADMAP queue 1, items 16.6 and 16.7)
-UNPORTED = ("whisper-large-v3", "pixtral-12b")
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_arch_raises(arch):
-    for fn in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("arch", ["mnist-mlp", "cifar-cnn"])
 def test_paper_net_configs_match_and_serve_refuses(arch, monkeypatch):
     """The paper's nets: every field equal to the reference's config; the
@@ -403,14 +389,3 @@ def test_paper_net_configs_match_and_serve_refuses(arch, monkeypatch):
     for extra in ([], ["--device", "cpu"]):
         with pytest.raises(ValueError, match="not an LM"):
             serve.main(["--arch", arch, "--smoke", *extra])
-
-
-@pytest.mark.parametrize("kw", [
-    dict(family="vlm"), dict(family="audio", is_encoder_decoder=True)])
-def test_unported_family_raises(kw):
-    cfg = get_smoke_config(ARCH).replace(**kw)
-    for call in (lambda: get_model(cfg),
-                 lambda: TT.init(cfg, torch.Generator(), device="cpu"),
-                 lambda: TT.init_cache(cfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()

@@ -87,8 +87,12 @@ def test_train_cli_defaults_to_the_card(monkeypatch):
 
 
 def test_train_cli_rejects_unported_arch(capsys):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["--arch", "pixtral-12b", "--smoke", "--device", "cpu"])
+    """The VLM and audio archs are refused before a device is touched
+    (the token stream makes no ``embeds`` or ``frames``: ROADMAP queue 3,
+    fault 9), as is an unknown method."""
+    for arch in ("pixtral-12b", "whisper-large-v3"):
+        with pytest.raises(ValueError, match="fault 9"):
+            train.main(["--arch", arch, "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--method", "top_k", "--device", "cpu"])
 
