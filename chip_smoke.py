@@ -227,7 +227,21 @@ the last line:
    through ``MOE_PATHS`` after the report and ``sparse_aggregate`` at
    its largest bucket's gradient; ``launch.serve --arch pixtral-12b
    --smoke`` on the card, and the refusals of ``launch.serve`` for
-   whisper and ``launch.train`` for both, each asserted.
+   whisper and ``launch.train`` for both, each asserted;
+13. the model axis: phase 6r's full-width internlm2-1.8b gradient, its
+   specs resolved for the production mesh's model axis (data 1, model
+   16, ``rules={"fsdp": None}``), every leaf cut into its 16 local
+   slices, each slice's exchange through ``make_manual_sync`` with
+   ``candidates='threshold'`` on the card against the same exchange
+   through the plain versions on the card (indices and ages exact,
+   synced values bitwise); the report and ``sparse_aggregate`` at the
+   largest slice (``mlp.w1``'s (24, 2,048, 512)) beside the bound and
+   ``torch.topk``; one dry-run combination (internlm2-1.8b x train_4k x
+   16x16, ``--sync rage_k``) under this machine's torch, in a
+   subprocess on the CPU that runs beside the card's phases; one
+   autotune sweep at internlm2's decode shapes and at ``mlp.w1``'s
+   slice into a temporary registry (``build/dryrun_smoke/AUTOTUNE.json``),
+   each winner held to its plain twin.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -4336,6 +4350,13 @@ LM_TRAIN = dict(batch=8, seq=128, lr=1e-3, r=2048, k=256)
 LM_STEPS = 10
 # the profiled steps at the end of each path's LM_STEPS
 LM_PROFILED = 2
+# steps of each path of phases 10-12's archs (cut from LM_STEPS to make
+# room for phase 13)
+ARCH_STEPS = 4
+# phase 13: the production mesh's model axis, and its dry-run combination
+MODEL_AXIS = 16
+DRYRUN_COMBO = ["--arch", "internlm2-1.8b", "--shape", "train_4k",
+                "--sync", "rage_k"]
 # the reference example's final losses at --steps 60 on a CPU (the
 # reference's own RNG streams): read beside the port's, never a gate
 REF_EXAMPLE = {"rage_k": 5.3894, "dense": 3.6821}
@@ -4587,11 +4608,12 @@ def lm_profile(torch, fn, steps: int) -> dict:
 
 
 def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
-                  paths, profiled: int = LM_PROFILED) -> dict:
+                  paths, profiled: int = LM_PROFILED,
+                  steps: int = LM_STEPS) -> dict:
     """Each of ``paths`` ((label, driver, method, candidates)) for
-    ``LM_STEPS`` steps of ``cfg`` from ``base`` (one ``T.init``; the
+    ``steps`` steps of ``cfg`` from ``base`` (one ``T.init``; the
     steps are functional and never write it): every step's loss finite,
-    the launches LM_STEPS times ``lm_per_step``; ms a step on the host
+    the launches ``steps`` times ``lm_per_step``; ms a step on the host
     clock after a sync over the unprofiled steps 2 on, then the last
     ``profiled`` under the profiler (busy share, top kernels); the
     allocator's peak. Under MoE also each step's ``lb_loss`` and
@@ -4659,7 +4681,7 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
         build.reset_launches()
         torch.cuda.synchronize()
         times = []
-        for i in range(LM_STEPS - profiled):
+        for i in range(steps - profiled):
             t0 = time.perf_counter()
             prev, (state, loss, stats) = state[0], one(state,
                                                        stream_batches[i])
@@ -4672,21 +4694,21 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
 
         def tail():
             nonlocal state, stats
-            for i in range(LM_STEPS - profiled, LM_STEPS):
+            for i in range(steps - profiled, steps):
                 if cfg.is_moe:
                     held_in.append(state[0])
                 state, loss, stats = one(state, stream_batches[i])
                 losses.append(loss)
         prof = lm_profile(torch, tail, profiled)
         launches = dict(build.LAUNCHES)
-        auxes += [aux_of(p, stream_batches[LM_STEPS - profiled + j])
+        auxes += [aux_of(p, stream_batches[steps - profiled + j])
                   for j, p in enumerate(held_in)]
         del held_in
-        want = {k: LM_STEPS * v for k, v in
+        want = {k: steps * v for k, v in
                 lm_per_step(driver, method, cand, buckets).items()}
         if launches != want:
             raise AssertionError(f"lm {label}: launched {launches} in "
-                                 f"{LM_STEPS} steps, expected {want}")
+                                 f"{steps} steps, expected {want}")
         losses = [float(x) for x in losses]
         if not all(map(math.isfinite, losses)):
             raise AssertionError(f"lm {label}: losses {losses}")
@@ -4706,10 +4728,10 @@ def lm_full_width(torch, dev, mesh, base, stream_batches, cfg,
                        drop_frac=[a[1] for a in auxes])
             if not all(map(math.isfinite, rec["lb_loss"] + rec["drop_frac"])):
                 raise AssertionError(f"lm {label}: aux {auxes}")
-        say(f"lm train: {label}: {LM_STEPS} steps, losses "
+        say(f"lm train: {label}: {steps} steps, losses "
             f"{losses[0]:.4f} .. {losses[-1]:.4f}; "
             f"{rec['ms']:.1f} ms a step (median of steps 2-"
-            f"{LM_STEPS - profiled}: "
+            f"{steps - profiled}: "
             f"{', '.join(f'{t:.1f}' for t in times[1:])}; first "
             f"{times[0]:.1f}); profiled {prof['ms']:.1f} ms a step, busy "
             f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%); "
@@ -4791,7 +4813,7 @@ def phase_lm_train(torch, dev, scratch: str) -> tuple:
                                   f"{names[big]} gradient"),
                   lm_report_check(torch, g_leaves[emb], budgets[emb][0],
                                   f"{names[emb]} gradient")]
-        del grads, g_leaves
+        del g_leaves
         row = (torch.randn(sizes[big], generator=gen, device=dev)
                * 1e-3).to(torch.bfloat16)
         report.append(lm_report_check(torch, row, budgets[big][0],
@@ -4799,6 +4821,12 @@ def phase_lm_train(torch, dev, scratch: str) -> tuple:
         del row
         aggregate = lm_aggregate_check(torch, dev, gen, sizes[big],
                                        budgets[big][1])
+        torch.cuda.empty_cache()
+        axis_launches, axis_recs = model_axis_sync(torch, dev, cfg, base,
+                                                   grads, gen)
+        del grads
+        for k, v in axis_launches.items():
+            total[k] += v
         torch.cuda.empty_cache()
 
         runs = lm_full_width(torch, dev, mesh, base, batches, cfg,
@@ -4848,7 +4876,248 @@ def phase_lm_train(torch, dev, scratch: str) -> tuple:
     say(f"lm train: phase wall {time.perf_counter() - t_phase:.1f} s; "
         f"launches {total}")
     return total, {"threshold_topk_batch": report,
-                   "sparse_aggregate": aggregate}
+                   "sparse_aggregate": aggregate, "model_axis": axis_recs}
+
+
+# ---------------------------------------------------------------------------
+# 13: the model axis, the dry run and the autotune registry
+# ---------------------------------------------------------------------------
+
+
+class _plain_kernels:
+    """The port's kernel wrappers take their plain versions on the card's
+    tensors inside (``ops._on_card`` answers False): the plain side of a
+    comparison, which launches nothing."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, ops._on_card
+        ops._on_card = lambda name, t: False
+
+    def __exit__(self, *exc):
+        self.ops._on_card = self.saved
+
+
+def model_axis_sync(torch, dev, cfg, base, grads, gen) -> tuple:
+    """13 (inside 6r, while its gradient lives): the full-width gradient's
+    specs on a (data 1, model 16) mesh under ``rules={"fsdp": None}``,
+    every leaf cut into its 16 local slices, each model coordinate's
+    exchange through ``make_manual_sync`` (rage_k, threshold candidates)
+    on the card against the same exchange through the plain versions on
+    the card: indices (the synced values' support), ages and synced
+    values equal exactly; then the report and ``sparse_aggregate`` at the
+    largest model-sharded slice (``mlp.w1``'s; the Megatron override
+    leaves ``wk`` and ``wv`` whole on every shard) beside the bound and
+    ``torch.topk``. Returns (the exchanges' launch counts, the
+    records)."""
+    import math
+    from repro_torch.core.sparsify import bucket_budgets
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist import sparse_sync as SS
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.steps import attention_overrides
+    from repro_torch.tree import flatten, leaves, tree_map, unflatten
+
+    t0 = time.perf_counter()
+    shape = {"data": 1, "model": MODEL_AXIS}
+    with SH.use_mesh(SH.Mesh(shape), rules={"fsdp": None}):
+        specs = SH.param_specs(base, overrides=attention_overrides(
+            SH.Mesh(shape), cfg))
+    shapes = tree_map(lambda p: p.to("meta"), base)
+    names = _leaf_names(base)
+    spec_l = leaves(specs)
+    g_leaves, node = flatten(grads)
+    total = {k: 0 for k in build.LAUNCHES}
+    for j in range(MODEL_AXIS):
+        mesh = HostMesh(shape, None, 0, dev, MODEL_AXIS, j)
+        coords = {"data": 0, "model": j}
+        local = [SH.local_slice(g, s, mesh, coords)
+                 for g, s in zip(g_leaves, spec_l)]
+        sync = SS.make_manual_sync(mesh, specs, shapes, method="rage_k",
+                                   candidates="threshold", r=LM_TRAIN["r"],
+                                   k=LM_TRAIN["k"])
+        ages = [torch.zeros(t.shape, dtype=torch.int32, device=dev)
+                for t in local]
+        build.reset_launches()
+        got = sync(unflatten(node, local), unflatten(node, ages))
+        for k, v in build.LAUNCHES.items():
+            total[k] += v
+        with _plain_kernels():
+            want = sync(unflatten(node, local), unflatten(node, ages))
+        for part, a, b in (("synced", got[0], want[0]),
+                           ("ages", got[1], want[1])):
+            for n, x, y in zip(names, leaves(a), leaves(b)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"model axis: slice {j} {n} "
+                                         f"{part} differ from the plain "
+                                         f"exchange")
+        if got[2]["wire_bytes_per_shard"] != want[2]["wire_bytes_per_shard"]:
+            raise AssertionError(f"model axis: slice {j} wire bytes differ")
+        del local, got, want
+    per_slice = {k: v // MODEL_AXIS for k, v in total.items()}
+    sizes = [math.prod(s.shape) for s in leaves(shapes)]
+    budgets = bucket_budgets(sizes, LM_TRAIN["r"], LM_TRAIN["k"])
+    i = max((i for i, s in enumerate(spec_l)
+             if SH.shard_count(SH.Mesh(shape), s) > 1),
+            key=lambda i: sizes[i])
+    t = SH.local_slice(g_leaves[i], spec_l[i], SH.Mesh(shape),
+                       {"data": 0, "model": 0})
+    n = t.numel()
+    ns = SH.shard_count(SH.Mesh(shape), spec_l[i])
+    r_l = max(1, budgets[i][0] // ns)
+    k_b = budgets[i][1]
+    k_l = max(1, min(r_l, k_b // ns if k_b >= ns else 1))
+    say(f"model axis: {cfg.name}'s gradient on a (data 1, model "
+        f"{MODEL_AXIS}) mesh, fsdp off: specs "
+        + ", ".join(f"{nm} {tuple(s)}" for nm, s in zip(names, spec_l))
+        + f"; all {MODEL_AXIS} slices' exchanges card == plain exactly "
+        f"(indices, ages, synced values, wire bytes); launches a slice "
+        f"{ {k: v for k, v in per_slice.items() if v} }; in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rep = lm_report_check(torch, t.contiguous(), r_l,
+                          f"model slice of {names[i]} {tuple(t.shape)}")
+    agg = lm_aggregate_check(torch, dev, gen, n, k_l)
+    return total, dict(leaf=names[i], slice_shape=list(t.shape),
+                       slice_elems=n, r_l=r_l, k_l=k_l, report=rep,
+                       aggregate=agg)
+
+
+def start_dryrun(scratch: str):
+    """The dry-run combination in a subprocess on the CPU (no card: it
+    allocates nothing and launches nothing), running beside the card's
+    phases; its output in ``scratch``. Killed at exit if a phase fails
+    before :func:`finish_dryrun` waits for it."""
+    import atexit
+    os.makedirs(scratch, exist_ok=True)
+    log = open(os.path.join(scratch, "dryrun.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_COMBO,
+         "--out", scratch], stdout=log, stderr=subprocess.STDOUT, env=env,
+        cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log, time.perf_counter()
+
+
+def finish_dryrun(proc, log, t_start, scratch: str) -> dict:
+    """Wait for :func:`start_dryrun`'s run; its record, printed."""
+    import torch
+    rc = proc.wait(timeout=900)
+    log.close()
+    text = open(os.path.join(scratch, "dryrun.log")).read()
+    if rc != 0:
+        raise AssertionError(f"dryrun: exit {rc}: {text[-3000:]}")
+    path = os.path.join(scratch,
+                        "internlm2-1.8b_train_4k_16x16.json")
+    rec = json.load(open(path))
+    t = rec["roofline"]
+    say(f"dryrun: internlm2-1.8b x train_4k x 16x16 --sync rage_k under "
+        f"torch {torch.__version__} on the CPU: ok in "
+        f"{time.perf_counter() - t_start:.1f} s of wall beside the card "
+        f"(trace {rec['lower_s']} s, probes {rec['compile_s']} s); "
+        f"per device: {rec['flops_per_dev']:.4e} FLOPs, "
+        f"{rec['bytes_per_dev']:.4e} B, collectives "
+        f"{rec['collective_bytes_per_dev']}; terms compute "
+        f"{t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, "
+        f"collective {t['collective_s']:.4e} s (dominant {rec['dominant']}"
+        f"); memory {rec['memory']}; full-depth trace "
+        f"{rec['full_trace']}")
+    return rec
+
+
+def autotune_sweep(torch, dev, gen, scratch: str, d: int, r: int) -> dict:
+    """13: one sweep of each consulted launch choice into a temporary
+    registry: ``decode_attention``'s tile and splits at internlm2's serve
+    and long-decode shapes (bfloat16), the report's blocks a row at
+    ``mlp.w1``'s model slice (1 x d, r its split budget); every
+    candidate timed on the card (``device_ms``), the winner recorded and
+    its output held to the plain twin (decode within ``DA_TOL``, the
+    report exactly). The registry stays in ``scratch``
+    (``AUTOTUNE.json``); the default one is restored after."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import report as RP
+
+    t0 = time.perf_counter()
+    path = os.path.join(scratch, "AUTOTUNE.json")
+    if os.path.exists(path):
+        os.remove(path)
+    autotune.set_path(path)
+    out = {}
+    try:
+        for B, H, G, D, S in (DA_SERVE, DA_MAIN):
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(
+                torch.bfloat16)
+            k = torch.randn((B, S, G, D), generator=gen, device=dev).to(
+                torch.bfloat16)
+            v = torch.randn((B, S, G, D), generator=gen, device=dev).to(
+                torch.bfloat16)
+            rep = H // G
+            configs = []
+            for tile in (DA.LARGE_TILE, DA.SMALL_TILE):
+                if DA.smem_bytes(D, 2, rep, tile) > DA.SMEM_LIMIT:
+                    continue
+                most = -(-S // DA.tile_positions(D, 2, tile))
+                for splits in (1, 2, 4, 8, 16, 32, 64):
+                    if splits <= most:
+                        configs.append({"tile_bytes": tile,
+                                        "splits": splits})
+
+            def timer(tile_bytes, splits):
+                chunk = DA.split_chunk(S, splits,
+                                       DA.tile_positions(D, 2, tile_bytes))
+                n_s = max(1, -(-S // chunk))
+                return 1e3 * device_ms(lambda: DA._launch(
+                    q, k, v, S, tile_bytes, n_s, chunk), reps=20, warmup=3)
+            rule = DA.choose_splits(B * G, S, D, 2, DA._sm_count(
+                dev.index or 0), rep)
+            best, results = autotune.sweep(
+                "decode_attention", (B * G, S, D, rep), "bfloat16",
+                autotune.CARD, configs, timer)
+            got = ops.decode_attention(q, k, v, S)
+            if DA.LAST_CUT["splits"] != DA.launch_cut(
+                    B * G, S, D, 2, DA._sm_count(dev.index or 0), rep)[1]:
+                raise AssertionError("autotune: the launch did not take "
+                                     "the recorded cut")
+            _da_close(torch, got, DA.decode_attention_plain(q, k, v, S),
+                      DA_TOL["bfloat16"])
+            say(f"autotune: decode_attention (B {B}, H {H}, G {G}, D {D}, "
+                f"{S} positions, bfloat16): rule {rule[:2]}; candidates "
+                + ", ".join(f"{c['tile_bytes']}/{c['splits']} "
+                            f"{c['us']:.2f} us" for c in results)
+                + f"; winner {best}, its output == plain within "
+                f"{DA_TOL['bfloat16']}")
+            out[f"decode_attention S {S}"] = dict(rule=list(rule[:2]),
+                                                  best=best,
+                                                  results=results)
+        row = (torch.randn((1, d), generator=gen, device=dev) * 1e-3)
+        want = RP.threshold_topk_batch_plain(row, r)
+
+        def rtimer(parts):
+            autotune.record("maghist_batch", (1, d), "float32",
+                            autotune.CARD, {"parts": parts}, 0.0)
+            return 1e3 * device_ms(lambda: RP.threshold_topk_batch(row, r),
+                                   reps=10, warmup=2)
+        best, results = autotune.sweep(
+            "maghist_batch", (1, d), "float32", autotune.CARD,
+            [{"parts": p} for p in (64, 32, 16, 8)], rtimer)
+        got = RP.threshold_topk_batch(row, r)
+        if not torch.equal(got.long(), want.long()):
+            raise AssertionError("autotune: the report at the winning "
+                                 "chunk differs from the plain version")
+        say(f"autotune: the report at 1 x {d:,} (r {r}): candidates "
+            + ", ".join(f"{c['parts']} parts {c['us']:.1f} us"
+                        for c in results)
+            + f"; winner {best}, its picks == plain exactly; registry "
+            f"{len(autotune.load())} entries in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["report"] = dict(best=best, results=results, r=r)
+    finally:
+        autotune.set_path(None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5112,7 +5381,7 @@ def phase_families(torch, dev, scratch: str) -> tuple:
         stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
                               LM_TRAIN["seq"], seed=1)
         batches = [train.to_device(next(stream), dev)
-                   for _ in range(LM_STEPS)]
+                   for _ in range(ARCH_STEPS)]
         say(f"moe train: {cfg.name} at full width, depth cut to "
             f"{cfg.n_layers} of {get_config(MOE_ARCH).n_layers} layers: "
             f"{sum(sizes):,} params in {len(sizes)} leaves, bfloat16, init "
@@ -5128,7 +5397,8 @@ def phase_families(torch, dev, scratch: str) -> tuple:
         aggregate = lm_aggregate_check(torch, dev, gen, sizes[i],
                                        budgets[i][1])
         torch.cuda.empty_cache()
-        runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS)
+        runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS,
+                             steps=ARCH_STEPS)
         for rec in runs.values():
             for k, v in rec["launches"].items():
                 total[k] += v
@@ -5276,7 +5546,8 @@ def ssm_train(torch, dev, mesh, arch: str, gen) -> tuple:
         cfg = cfg.replace(n_layers=HYBRID_TRAIN_LAYERS)
     stream = token_stream(cfg.vocab_size, LM_TRAIN["batch"],
                           LM_TRAIN["seq"], seed=1)
-    batches = [train.to_device(next(stream), dev) for _ in range(LM_STEPS)]
+    batches = [train.to_device(next(stream), dev)
+               for _ in range(ARCH_STEPS)]
     return arch_train(torch, dev, mesh, cfg, full.n_layers, gen, batches)
 
 
@@ -5285,7 +5556,7 @@ def arch_train(torch, dev, mesh, cfg, full_layers: int, gen,
     """``cfg`` (of ``full_layers`` at full depth) in bfloat16 from one
     ``T.init``: the report and ``sparse_aggregate`` at the largest
     bucket's gradient (on ``batches[0]``) == their plain versions, then
-    ``LM_STEPS`` steps of each ``MOE_PATHS`` path on ``batches``
+    ``ARCH_STEPS`` steps of each ``MOE_PATHS`` path on ``batches``
     (``lm_full_width``). Returns (the paths' launch counts, the report's
     and the aggregate's records, the paths' records)."""
     from repro_torch.core.sparsify import bucket_budgets
@@ -5319,7 +5590,7 @@ def arch_train(torch, dev, mesh, cfg, full_layers: int, gen,
                                    budgets[big][1])
     torch.cuda.empty_cache()
     runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS,
-                         profiled=SSM_PROFILED)
+                         profiled=SSM_PROFILED, steps=ARCH_STEPS)
     total = {k: 0 for k in build.LAUNCHES}
     for rec in runs.values():
         for k, v in rec["launches"].items():
@@ -5730,7 +6001,7 @@ def phase_vlm_audio(torch, dev, scratch: str) -> tuple:
             if cfg.family == "vlm":
                 cfg = cfg.replace(n_layers=VLM_TRAIN_LAYERS)
             batches = [concrete_batch(cfg, shape, gen)
-                       for _ in range(LM_STEPS)]
+                       for _ in range(ARCH_STEPS)]
             say(f"vlm/audio train: {arch} batches "
                 + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
                             for k, v in batches[0].items()))
@@ -5820,6 +6091,9 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say("  " + line.strip())
+    dry_dir = os.path.join(ROOT, "build", "dryrun_smoke")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dryrun = start_dryrun(dry_dir)
 
     kernels = phase_kernels(torch, dev)
 
@@ -5887,6 +6161,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     va, va_recs = phase_vlm_audio(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    axis = lm_recs["model_axis"]
+    tuned = autotune_sweep(torch, dev, torch.Generator(
+        device=dev).manual_seed(13), dry_dir, axis["slice_elems"],
+        axis["r_l"])
+    dry = finish_dryrun(*dryrun, dry_dir)
+    say(f"model axis: phase 13's sweep and dry run in "
+        f"{time.perf_counter() - t0:.1f} s after phase 12")
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (
@@ -5896,6 +6179,14 @@ def main() -> int:
             fam, ssm, va))
         if k["name"] in lm_recs:
             k["lm_buckets"] = lm_recs[k["name"]]
+        if k["name"] == "threshold_topk_batch":
+            k["model_axis_slice"] = axis["report"]
+            k["autotune"] = tuned["report"]
+        if k["name"] == "sparse_aggregate":
+            k["model_axis_slice"] = axis["aggregate"]
+        if k["name"] == "decode_attention":
+            k["autotune"] = {n: v for n, v in tuned.items()
+                             if n.startswith("decode")}
         if k["name"] in fam_recs:
             k["families"] = fam_recs[k["name"]]
         if k["name"] in ssm_recs:
@@ -5906,6 +6197,9 @@ def main() -> int:
             k["age_bench_packing"] = seg_bench
         if k["name"] in real:
             k["cifar_real_gradients"] = real[k["name"]]
+    say(json.dumps({"dryrun": {key: dry[key] for key in (
+        "arch", "shape", "mesh", "sync", "roofline", "dominant",
+        "flops_per_dev", "bytes_per_dev", "collective_total_per_dev")}}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,10 @@ _ARCHS = {
 }
 
 
+# the LM archs (the paper's nets are built by the engine, not the zoo)
+ASSIGNED_ARCHS = [a for a in _ARCHS if a not in ("mnist-mlp", "cifar-cnn")]
+
+
 def list_archs() -> list[str]:
     return list(_ARCHS)
 

@@ -18,7 +18,11 @@ Three entry points:
     each rank selects its k_b entries per bucket from its own gradient,
     all-gathers (idx, vals) in rank order, and lands the union through
     ``kernels.ops.sparse_aggregate`` (the CUDA kernel on the card): the
-    scatter-add of vals / n_active with the hit-based age lane.
+    scatter-add of vals / n_active with the hit-based age lane. Under
+    model-sharded specs (``dist.sharding``) each rank passes its local
+    slice of every leaf, the bucket's (r_b, k_b) is split across the
+    leaf's shards, and the exchange gathers over the data group alone,
+    as the reference's ``shard_map`` does.
 ``make_buffered_sync``    FedBuff-style buffering over the manual sync.
 
 Byte counts are host ints, exact at any size: the reference stores the
@@ -37,6 +41,7 @@ from repro_torch import tree as _tree
 from repro_torch.core.sparsify import bucket_budgets
 from repro_torch.core.strategies import make_strategy
 from repro_torch.device import resolve
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import apply_updates
 
@@ -184,16 +189,24 @@ def make_sync_train_step(loss_fn, opt, mesh=None, *, method: str = "rage_k",
 # ---------------------------------------------------------------------------
 
 
-def _require_replicated(specs):
-    """Every leaf replicated over the data group: ``specs`` None, or a tree
-    whose leaves are all None."""
-    if specs is None:
-        return
-    if any(s is not None for s in _tree.leaves(specs)):
-        raise NotImplementedError(
-            "make_manual_sync: model-sharded specs are not ported yet: "
-            "ROADMAP queue 1, item 16.9 (dist/sharding.py); pass "
-            "specs=None (every leaf replicated over the data group)")
+def _data_group(mesh, data_axes: tuple, n_data: int):
+    """(the data axes' process group, this rank's coordinate in it): the
+    mesh's own (``HostMesh``), or, on a ``dist.sharding.Mesh`` over a
+    DeviceMesh (the dry run's), a group of the ranks that share this
+    rank's other coordinates."""
+    if hasattr(mesh, "group"):
+        return mesh.group, mesh.rank
+    dm = mesh.device_mesh
+    if dm is None or n_data == 1:
+        return None, 0
+    coords = SH.mesh_coords(mesh, dist.get_rank())
+    ranks = [q for q in range(math.prod(mesh.shape.values()))
+             if all(SH.mesh_coords(mesh, q)[a] == c
+                    for a, c in coords.items() if a not in data_axes)]
+    rank = 0
+    for a in data_axes:
+        rank = rank * mesh.shape[a] + coords[a]
+    return dist.new_group(ranks), rank
 
 
 def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -207,11 +220,21 @@ def make_manual_sync(mesh, specs, shapes, *, method: str = "rage_k",
                      candidates: str = "sort", r: int = 0, k: int = 0,
                      wire_dtype=torch.bfloat16, lam: float = 0.1,
                      validate: bool = False, gate_bound: float = 1e4):
-    """The explicit exchange over ``mesh``'s data group
-    (``make_host_mesh``). ``specs`` None: every leaf replicated over the
-    group; ``shapes``: a tree of tensors (``meta`` ones will do) shaped as
-    the grads. Returns sync(grads, ages, active=None) -> (synced,
-    new_ages, stats), with ``.n_data`` and ``.age_specs``.
+    """The explicit exchange over ``mesh``'s data axes (``make_host_mesh``,
+    or a ``dist.sharding.Mesh`` over a DeviceMesh). ``specs`` None: every
+    leaf replicated; else a tree of ``dist.sharding.PartitionSpec`` (the
+    params'), under which each rank passes the local slice of every leaf
+    and age leaf (``dist.sharding.local_slice`` at its coordinates) and
+    gets its local slices back. ``shapes``: a tree of tensors (``meta``
+    ones will do) of the global shapes. Returns sync(grads, ages,
+    active=None) -> (synced, new_ages, stats), with ``.n_data`` and
+    ``.age_specs`` (the grads' specs; for cafe the leading [age; cost]
+    lane replicated).
+
+    Each leaf's global (r_b, k_b) is split across its ns shards, so that
+    the whole replica group uploads k_b entries: r_l = max(1, r_b // ns),
+    k_l = max(1, min(r_l, k_b // ns if k_b >= ns else 1)), selected from
+    the local slice. No collective runs over the model axis.
 
     Each rank selects its k_b entries per bucket from its own gradient,
     all-gathers (idx int32, vals in ``wire_dtype``) over the group in rank
@@ -231,12 +254,23 @@ def make_manual_sync(mesh, specs, shapes, *, method: str = "rage_k",
     times the senders, quarantined ones included) and
     ``quarantined_shards``, int64 tensors on the grads' device.
     """
-    _require_replicated(specs)
     _check_method(method)
-    n_data, group, rank = mesh.shape["data"], mesh.group, mesh.rank
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_data = math.prod(mesh.shape[a] for a in data_axes)
+    group, rank = _data_group(mesh, data_axes, n_data)
     sizes = [math.prod(s.shape) for s in _tree.leaves(shapes)]
-    budgets = (bucket_budgets(sizes, r, k) if method != "dense"
-               else [(0, 0)] * len(sizes))
+    spec_leaves = (_tree.leaves(specs) if specs is not None
+                   else [SH.P()] * len(sizes))
+    if method != "dense":
+        budgets = []
+        for (r_b, k_b), spec in zip(bucket_budgets(sizes, r, k),
+                                    spec_leaves):
+            ns = SH.shard_count(mesh, spec)
+            r_l = max(1, r_b // ns)
+            k_l = max(1, min(r_l, k_b // ns if k_b >= ns else 1))
+            budgets.append((r_l, k_l))
+    else:
+        budgets = [(0, 0)] * len(sizes)
     vb = _wire_bytes(wire_dtype)
 
     def sync(grads, ages, active=None):
@@ -317,8 +351,10 @@ def make_manual_sync(mesh, specs, shapes, *, method: str = "rage_k",
                 _tree.unflatten(node, new_ages), stats)
 
     sync.n_data = n_data
-    # ages lie like the grads: replicated over the data group
+    # ages lie like the grads (cafe: the leading lane replicated)
     sync.age_specs = specs
+    if method == "cafe" and specs is not None:
+        sync.age_specs = _tree.tree_map(lambda s: SH.P(None, *s), specs)
     return sync
 
 

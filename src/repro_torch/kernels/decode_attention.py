@@ -203,9 +203,39 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, n = _checked(q, k, v, cache_len)
     B, H, D = q.shape
     G = k.shape[2]
-    return _launch(q, k, v, n, *choose_splits(
+    return _launch(q, k, v, n, *launch_cut(
         B * G, n, D, q.element_size(), _sm_count(q.device.index or 0),
         H // G))
+
+
+_CUTS: dict = {}
+
+
+def launch_cut(blocks: int, n: int, D: int, itemsize: int, sms: int,
+               rep: int = 1):
+    """(tile_bytes, splits, chunk) of a launch on the card: the autotune
+    registry's tile and split count at exactly this (blocks, n, D, rep) and
+    dtype, re-cut as :func:`split_chunk` cuts, where one is recorded and
+    its tile fits; else :func:`choose_splits`. The splits change only the
+    combine's rounding."""
+    from repro_torch.kernels import autotune
+
+    key = (blocks, n, D, itemsize, sms, rep, autotune.version)
+    if key not in _CUTS:
+        cfg = autotune.lookup(
+            "decode_attention", (blocks, n, D, rep),
+            "bfloat16" if itemsize == 2 else "float32", autotune.CARD,
+            nearest=False)
+        cut = choose_splits(blocks, n, D, itemsize, sms, rep)
+        if cfg and cfg.get("tile_bytes") in (LARGE_TILE, SMALL_TILE) \
+                and smem_bytes(D, itemsize, rep, cfg["tile_bytes"]) \
+                <= SMEM_LIMIT and int(cfg.get("splits", 0)) >= 1:
+            tile = cfg["tile_bytes"]
+            chunk = split_chunk(n, int(cfg["splits"]),
+                                tile_positions(D, itemsize, tile))
+            cut = (tile, max(1, -(-n // chunk)), chunk)
+        _CUTS[key] = cut
+    return _CUTS[key]
 
 
 def _decode_attention_splits(q, k, v, cache_len, splits: int):

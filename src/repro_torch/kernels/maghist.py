@@ -39,6 +39,30 @@ def chunk_for(d: int) -> int:
     return BLOCK_D * -(-d // (BLOCK_D * MAX_PARTS))
 
 
+_CHUNKS: dict = {}
+
+
+def launch_chunk(n: int, d: int) -> int:
+    """The chunk of a launch on the card over (n, d): the autotune
+    registry's blocks a row for ``maghist_batch`` at this shape (or the
+    nearest recorded one), as the chunk that cuts d into at most that many
+    blocks; :func:`chunk_for` where there is none or it is out of range.
+    The candidate report's two launches take the same chunk. Only the
+    integer counts' grouping changes, never a result."""
+    from repro_torch.kernels import autotune
+
+    key = (n, d, autotune.version)
+    if key not in _CHUNKS:
+        cfg = autotune.lookup("maghist_batch", (n, d), "float32",
+                              autotune.CARD)
+        parts = cfg.get("parts") if cfg else None
+        chunk = chunk_for(d)
+        if isinstance(parts, int) and 1 <= parts <= MAX_PARTS:
+            chunk = max(chunk, BLOCK_D * -(-d // (BLOCK_D * parts)))
+        _CHUNKS[key] = chunk
+    return _CHUNKS[key]
+
+
 def exponent_bins(mag: torch.Tensor) -> torch.Tensor:
     """|g| (float32, non-negative) -> int64 bin ids."""
     mag = mag.to(torch.float32)
@@ -75,7 +99,7 @@ def _launch_counts(G: torch.Tensor, ctr, rows: bool):
     if not (1 <= n <= 65535 and d >= 1):
         raise ValueError(f"maghist_batch: needs 1 to 65535 rows and d >= 1, "
                          f"got {tuple(G.shape)}")
-    chunk = chunk_for(d)
+    chunk = launch_chunk(n, d)
     counts = torch.empty((n, -(-d // chunk), SLOTS), dtype=torch.int32,
                          device=G.device)
     hist = (torch.empty((n, NBINS), dtype=torch.int32, device=G.device)

@@ -102,7 +102,7 @@ def threshold_topk_batch(G: torch.Tensor, r: int, *, vals: bool = False):
                None if ov is None else ov.data_ptr(),
                None if gbuf is None else gbuf[0].data_ptr(),
                None if gbuf is None else gbuf[1].data_ptr(), n, d,
-               MH.chunk_for(d), r, cap)
+               MH.launch_chunk(n, d), r, cap)
     return (ov, out) if vals else out
 
 

@@ -6,8 +6,10 @@ Plain functions on tensors, differentiable by autograd (none writes in
 place into a tensor that autograd keeps; the training loss's gradient
 goes through them); parameters are nested dicts of tensors in the JAX
 layout (``x @ w`` with ``w`` of shape (d_in, d_out)). Draws take a
-``torch.Generator`` and land on its device. The sharding constraints of
-the JAX file are not ported: on one card they are the identity.
+``torch.Generator`` and land on its device. The sharding constraints
+sit where the JAX file has them (``dist.sharding.constraint``): the
+identity without an active mesh and on plain tensors, so one card and
+the CPU run exactly what they ran before.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import regions as RG
+from repro_torch.dist.sharding import constraint, is_dtensor, split_heads
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -119,6 +123,7 @@ def apply_mlp(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         h = a(x @ p["w1"]) * (x @ p["w3"])
     else:
         h = a(x @ p["w1"])
+    h = constraint(h, ("batch", "seq", "d_ff")) if h.ndim == 3 else h
     return h @ p["w2"]
 
 
@@ -151,9 +156,9 @@ def qkv(p: dict, cfg, x: torch.Tensor):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    return (split_heads(q, (B, S, cfg.n_heads, hd)),
+            split_heads(k, (B, S, cfg.n_kv_heads, hd)),
+            split_heads(v, (B, S, cfg.n_kv_heads, hd)))
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +173,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with an online softmax over KV chunks, as the reference computes it
     (inputs of each product rounded to the stored dtype, products summed
     in float32, all -inf rows guarded). Plain PyTorch; the prefill and
-    training path."""
+    training path. On DTensors (the dry run) it runs on each device's
+    shards (``dist.regions.flash_attention``)."""
+    if is_dtensor(q):
+        return RG.flash_attention(flash_attention, q, k, v, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  kv_chunk=kv_chunk)
     B, Sq, H, D = q.shape
     Skv, G = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -206,11 +216,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)                # (B, Sq, H, Dv)
 
 
+def write_slot(cache: torch.Tensor, slot: int, row: torch.Tensor) -> None:
+    """``cache[:, slot] = row`` in place; on DTensors (the dry run) only
+    the device holding the slot writes (``dist.regions.write_slot``)."""
+    if is_dtensor(cache):
+        RG.write_slot(cache, slot, row)
+    else:
+        cache[:, slot] = row
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
     """One query token per head (B, H, D) over the first ``cache_len``
     positions of the (B, S, G, D) cache: the CUDA kernel on the card, its
     plain version on the CPU. Unlike the reference layer it does not round
     q * scale and the softmax weights to the cache dtype: both stay
-    float32, as in the TPU kernel."""
+    float32, as in the TPU kernel. On DTensors (the dry run) it runs on
+    each device's shards (``dist.regions.decode_attention``)."""
+    if is_dtensor(k_cache):
+        return RG.decode_attention(ops.decode_attention, q, k_cache,
+                                   v_cache, cache_len)
     return ops.decode_attention(q, k_cache, v_cache, cache_len)

@@ -75,9 +75,9 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, c_kv: torch.Tensor,
     q_nope, q_rope = _split_q(cfg, x @ p["wq"])                # (B,1,H,*)
     q_rope = L.rope(q_rope, posv, cfg.rope_theta)
     if pos < S:
-        c_kv[:, pos] = (x @ p["w_dkv"])[:, 0]
-        k_rope[:, pos] = L.rope((x @ p["w_kr"])[:, :, None, :], posv,
-                                cfg.rope_theta)[:, 0, 0]
+        L.write_slot(c_kv, pos, (x @ p["w_dkv"])[:, 0])
+        L.write_slot(k_rope, pos, L.rope((x @ p["w_kr"])[:, :, None, :],
+                                         posv, cfg.rope_theta)[:, 0, 0])
     f32 = torch.float32
     n = min(pos + 1, S)
     # q_lat[b, h, r] = q_nope[b, h, :] . w_uk[r, h, :]

@@ -21,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import regions as RG
+from repro_torch.dist.sharding import constraint, is_dtensor
 from repro_torch.models import layers as L
 
 _F32 = torch.float32
@@ -171,9 +173,12 @@ def apply_ssm(p: dict, cfg, x: torch.Tensor, *, conv_state=None,
     dt = F.softplus(dt.to(_F32) + p["dt_bias"])              # (b,L,nh)
     A = -torch.exp(p["A_log"])                               # (nh,)
     xh = xs.reshape(b, Ln, nh, hp)
+    xh = constraint(xh, ("batch", None, "ssm_heads", None))
     x_dt = (xh.to(_F32) * dt[..., None]).to(x.dtype)
-    y, final_state = ssd_chunked(x_dt, dt * A, B, C, cfg.ssm_chunk,
-                                 init_state=ssm_state)
+    scan = (ssd_chunked if not is_dtensor(x_dt) else
+            lambda *a, **kw: RG.ssd(ssd_chunked, *a, kw["init_state"]))
+    y, final_state = scan(x_dt, dt * A, B, C, cfg.ssm_chunk,
+                          init_state=ssm_state)
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
     y = _gated_norm(p, y.reshape(b, Ln, di), z, x.dtype)
     out = y @ p["out_proj"]

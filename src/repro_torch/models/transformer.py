@@ -39,6 +39,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.dist import regions as RG
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -166,14 +169,32 @@ def _attn_seq(p, cfg, x, positions, causal: bool = True):
     q, k, v = L.qkv(p, cfg, x)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if _seq_parallel_attn(cfg):
+        # heads do not divide the model axis: sequence-parallel attention
+        q = constraint(q, ("batch", "seq_model", None, None))
+        k = constraint(k, ("batch", None, None, None))
+        v = constraint(v, ("batch", None, None, None))
     o = L.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim_) @ p["wo"]
+
+
+def _seq_parallel_attn(cfg) -> bool:
+    """Sequence-parallel attention: asked for by the config, under a mesh
+    whose model axis the head count does not divide."""
+    if not cfg.seq_parallel_attn:
+        return False
+    mesh = SH.active_mesh()
+    if mesh is None or cfg.n_heads == 0:
+        return False
+    nm = mesh.shape.get("model", 1)
+    return nm > 1 and cfg.n_heads % nm != 0
 
 
 def _dense_block_seq(p, cfg, x, positions):
     """One block -> (x, aux): MoE's aux, or {} after an MLP."""
     h = L.apply_norm(p["ln1"], cfg, x)
     x = x + _attn_seq(p["attn"], cfg, h, positions)
+    x = constraint(x, ("batch", "seq", "embed"))
     h = L.apply_norm(p["ln2"], cfg, x)
     if cfg.is_moe:
         y, aux = MOE.apply_moe(p["moe"], cfg, h)
@@ -186,10 +207,18 @@ def _ssm_block_seq(p, cfg, x):
     return x + SSM.apply_ssm(p["ssm"], cfg, h)
 
 
+def _ssm_layer_seq(p, cfg, x):
+    """One layer of the SSM stack, its saved input sequence-sharded over
+    the model axis under a mesh, as the reference's scan body."""
+    return _ssm_block_seq(p, cfg, constraint(x, ("batch", "seq_model",
+                                                 "embed")))
+
+
 def _hybrid_group_seq(layers, shared, cfg, x, positions, g: int):
     """Group g of the hybrid stack: its ``attn_every`` SSM layers, then the
     shared attention block."""
     G = cfg.attn_every
+    x = constraint(x, ("batch", "seq_model", "embed"))
     for i in range(g * G, (g + 1) * G):
         x = _ssm_block_seq(_layer(layers, i), cfg, x)
     return _dense_block_seq(shared, cfg, x, positions)[0]
@@ -199,7 +228,7 @@ def _remat(fn, cfg, *args):
     """fn(*args), its activations recomputed in the backward pass under
     ``cfg.remat`` while autograd records."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(RG.preserve(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -218,7 +247,7 @@ def _backbone(params, cfg, x, positions):
     no_aux = {"lb_loss": zero, "drop_frac": zero}
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x = _remat(_ssm_block_seq, cfg, _layer(params["layers"], i),
+            x = _remat(_ssm_layer_seq, cfg, _layer(params["layers"], i),
                        cfg, x)
         return x, no_aux
     if cfg.family == "hybrid":
@@ -271,9 +300,9 @@ def _cross_attn_seq(p, cfg, x, enc):
     RoPE, no bias, no mask."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (enc @ p["wk"]).reshape(B, enc.shape[1], cfg.n_kv_heads, hd)
-    v = (enc @ p["wv"]).reshape(B, enc.shape[1], cfg.n_kv_heads, hd)
+    q = SH.split_heads(x @ p["wq"], (B, S, cfg.n_heads, hd))
+    k = SH.split_heads(enc @ p["wk"], (B, enc.shape[1], cfg.n_kv_heads, hd))
+    v = SH.split_heads(enc @ p["wv"], (B, enc.shape[1], cfg.n_kv_heads, hd))
     o = L.flash_attention(q, k, v, causal=False)
     return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
 
@@ -292,7 +321,7 @@ def _decoder_encdec(params, cfg, tokens: torch.Tensor, enc: torch.Tensor):
     positions, a checkpoint a layer under ``cfg.remat``; returns the
     hidden states after ``norm_f``."""
     S = tokens.shape[1]
-    x = params["embed"]["w"][tokens.to(torch.int64)] \
+    x = _lookup(params["embed"]["w"], tokens) \
         + params["dec_pos"]["w"][None, :S]
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.n_layers):
@@ -318,11 +347,14 @@ def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     x: (B, S, d); labels: (B, S) ints below ``vocab_size``."""
     B, S, d = x.shape
     Vp = w_unembed.shape[1]
+    x = constraint(x, ("batch", "seq", "embed"))
+    labels = constraint(labels, ("batch", "seq"))
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad))
+        pad_fn = RG.pad if SH.is_dtensor(x) else torch.nn.functional.pad
+        x = pad_fn(x, (0, 0, 0, pad))
+        labels = pad_fn(labels, (0, pad))
     labels = labels.to(torch.int64)
     dev = x.device
     vmask = torch.arange(Vp, device=dev) < vocab_size
@@ -332,10 +364,21 @@ def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     for c0 in range(0, S + pad, chunk):
         logits = x[:, c0:c0 + chunk].to(torch.float32) @ w   # (B, c, Vp)
         logits = torch.where(vmask, logits, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
+        if SH.is_dtensor(logits):
+            lse, gold = RG.xent(logits, labels[:, c0:c0 + chunk])
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
         tot = tot + ((lse - gold) * valid[c0:c0 + chunk]).sum()
     return tot / (B * S)
+
+
+def _lookup(w, ids):
+    """Rows of the embedding table ``w`` at integer ``ids``; on DTensors
+    each vocabulary shard's own rows (``dist.regions.embed``)."""
+    if SH.is_dtensor(w):
+        return RG.embed(w, ids)
+    return w[ids.to(torch.int64)]
 
 
 def _embed_in(params, cfg, batch) -> torch.Tensor:
@@ -343,7 +386,7 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
     else the embedding of ``tokens``."""
     if cfg.family == "vlm":
         return batch["embeds"]
-    return params["embed"]["w"][batch["tokens"].to(torch.int64)]
+    return _lookup(params["embed"]["w"], batch["tokens"])
 
 
 def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
@@ -361,7 +404,7 @@ def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
                             cfg.vocab_size)
         return loss, {"lb_loss": torch.zeros((), dtype=torch.float32,
                                              device=h.device)}
-    x = _embed_in(params, cfg, batch)
+    x = constraint(_embed_in(params, cfg, batch), ("batch", "seq", "embed"))
     h, aux = _backbone(params, cfg, x,
                        torch.arange(x.shape[1], device=x.device))
     h = L.apply_norm(params["norm_f"], cfg, h)
@@ -386,7 +429,8 @@ def prefill(params, cfg, inputs) -> torch.Tensor:
         enc = _encoder(params, cfg, inputs["frames"])
         h = _decoder_encdec(params, cfg, inputs["tokens"], enc)
     else:
-        x = _embed_in(params, cfg, inputs)
+        x = constraint(_embed_in(params, cfg, inputs),
+                       ("batch", "seq_model", "embed"))
         h, _ = _backbone(params, cfg, x,
                          torch.arange(x.shape[1], device=x.device))
         h = L.apply_norm(params["norm_f"], cfg, h)
@@ -459,8 +503,8 @@ def _attn_decode(p, cfg, x, k_cache, v_cache, pos: int):
     k = L.rope(k, posv, cfg.rope_theta)
     slot = pos % S_cache if cfg.sliding_window else min(pos, S_cache - 1)
     cache_len = min(pos + 1, S_cache)          # a host int: no device sync
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
+    L.write_slot(k_cache, slot, k[:, 0])
+    L.write_slot(v_cache, slot, v[:, 0])
     o = L.decode_attention(q[:, 0], k_cache, v_cache, cache_len)
     return o.reshape(B, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"]
 
@@ -474,7 +518,7 @@ def decode_step(params, cfg, inputs, cache, pos: int):
     if "embed" in inputs:
         x = inputs["embed"][:, None, :]
     else:
-        x = params["embed"]["w"][inputs["token"].to(torch.int64)][:, None, :]
+        x = _lookup(params["embed"]["w"], inputs["token"])[:, None, :]
     if cfg.family in ("ssm", "hybrid", "audio"):
         decode = _audio_decode if cfg.family == "audio" else _ssm_decode
         x = decode(params, cfg, x, cache, pos)
@@ -543,6 +587,6 @@ def _cross_attn_decode(p, cfg, x, k_cache, v_cache):
     """x (B, 1, d) attends to the (B, S_enc, G, hd) cross caches: q with
     no RoPE and no bias, every position valid."""
     B = x.shape[0]
-    q = (x[:, 0] @ p["wq"]).reshape(B, cfg.n_heads, cfg.head_dim_)
+    q = SH.split_heads(x[:, 0] @ p["wq"], (B, cfg.n_heads, cfg.head_dim_))
     o = L.decode_attention(q, k_cache, v_cache, k_cache.shape[1])
     return o.reshape(B, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"]

@@ -15,7 +15,8 @@ def _flatten(tree, leaves: list):
     if isinstance(tree, dict):
         keys = sorted(tree)
         return (dict, keys, [_flatten(tree[key], leaves) for key in keys])
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not getattr(tree, "is_tree_leaf",
+                                                       False):
         return (type(tree), None, [_flatten(t, leaves) for t in tree])
     leaves.append(tree)
     return None
@@ -26,7 +27,9 @@ def _unflatten(node, leaves):
         return next(leaves)
     kind, keys, children = node
     built = [_unflatten(c, leaves) for c in children]
-    return dict(zip(keys, built)) if kind is dict else kind(built)
+    if kind is dict:
+        return dict(zip(keys, built))
+    return kind(*built) if hasattr(kind, "_fields") else kind(built)
 
 
 def flatten(tree) -> tuple[list, object]:

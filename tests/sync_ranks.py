@@ -2,10 +2,16 @@
 ``tests/test_torch_sparse_sync.py``: each scenario's two calls on the
 port over two gloo ranks on the CPU, or on the reference over a
 2-device CPU mesh (run with ``XLA_FLAGS=--xla_force_host_platform_device
-_count=2``).
+_count=2``). And a (data 2, model 2) mesh of the model-sharded sync, for
+``tests/test_torch_sharding.py``: the port on four gloo ranks, each
+passing its local slices, or the reference on four forced host devices
+(the ``torch4`` and ``jax4`` modes, :func:`start4`, :func:`collect4`,
+:func:`check_four_ranks_match_reference`).
 
   python tests/sync_ranks.py torch IN.npz OUT_DIR
   python tests/sync_ranks.py jax IN.npz OUT_DIR
+  python tests/sync_ranks.py torch4 IN.npz OUT_DIR
+  python tests/sync_ranks.py jax4 IN.npz OUT_DIR
 
 IN holds the gradient leaves of each rank (``g{rank}_{leaf:02d}``),
 ``r`` and ``k``. A gradient tree is {"l00": leaf 0, "l01": ...}, whose
@@ -294,12 +300,182 @@ def check_distinct_match_oracle(runs):
                 assert got[f"{name}/{call}/stats/{s_}"] == v, (name, call, s_)
 
 
+# ---------------------------------------------------------------------------
+# the model-sharded sync on a (data 2, model 2) mesh
+# ---------------------------------------------------------------------------
+
+# (name, method, candidates, active of the two calls); identical global
+# gradients on both data ranks, each model rank holding its slices
+SCENARIOS4 = [
+    ("rage_k_threshold", "rage_k", "threshold", (None, None)),
+    ("rage_k_sort", "rage_k", "sort", (None, None)),
+    ("rage_k_masked", "rage_k", "sort", ((True, False), (False, True))),
+    ("cafe", "cafe", "sort", (None, None)),
+    ("dense", "dense", "sort", (None, None)),
+]
+
+
+def model_spec(shape, i: int) -> tuple:
+    """Leaf i's spec entries over the model axis: a matrix or stack is
+    split on its last dim (its second to last when i % 3 == 1) where 2
+    divides it; a vector is replicated."""
+    out = [None] * len(shape)
+    if len(shape) >= 2:
+        dim = len(shape) - (2 if i % 3 == 1 else 1)
+        if shape[dim] % 2 == 0:
+            out[dim] = "model"
+    return tuple(out)
+
+
+def load4(path):
+    data = np.load(path)
+    n = sum(1 for k in data.files if k.startswith("g_"))
+    return ({f"l{i:02d}": data[f"g_{i:02d}"] for i in range(n)},
+            int(data["r"]), int(data["k"]))
+
+
+def run_torch4_rank(rank, path_in, out_dir, init_file):
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist import sparse_sync as SS
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=4)
+    grads, r, k = load4(path_in)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    coords = {"data": mesh.rank, "model": mesh.model_rank}
+    specs = {n: SH.P(*model_spec(v.shape, i))
+             for i, (n, v) in enumerate(sorted(grads.items()))}
+    shapes = {n: torch.empty(v.shape, device="meta")
+              for n, v in grads.items()}
+    local = {n: SH.local_slice(torch.from_numpy(v), specs[n], mesh, coords)
+             for n, v in grads.items()}
+    out = {}
+    for name, method, cand, actives in SCENARIOS4:
+        sync = SS.make_manual_sync(mesh, specs, shapes, method=method,
+                                   candidates=cand, r=r, k=k)
+        ages = SS.init_age_state_sharded(
+            {n: torch.empty(t.shape, device="meta")
+             for n, t in local.items()}, method=method, device="cpu")
+        for call, act in enumerate(actives):
+            act = None if act is None else torch.tensor(act)
+            synced, ages, stats = sync({n: t.clone() for n, t in
+                                        local.items()}, ages, active=act)
+            _flat_out(out, name, call, {n: t.numpy() for n, t in
+                                        synced.items()},
+                      {n: t.numpy() for n, t in ages.items()},
+                      {n: (v if isinstance(v, int) else v.numpy())
+                       for n, v in stats.items()})
+    out["coords"] = np.asarray([mesh.rank, mesh.model_rank])
+    np.savez(os.path.join(out_dir, f"torch4_rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def run_jax4(path_in, out_dir):
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.dist.sparse_sync import (init_age_state_sharded,
+                                        make_manual_sync)
+    from repro.launch.mesh import make_host_mesh
+
+    grads, r, k = load4(path_in)
+    mesh = make_host_mesh(2, 2)
+    assert dict(mesh.shape) == {"data": 2, "model": 2}, mesh.shape
+    specs = {n: P(*model_spec(v.shape, i))
+             for i, (n, v) in enumerate(sorted(grads.items()))}
+    shapes = {n: jax.ShapeDtypeStruct(v.shape, v.dtype)
+              for n, v in grads.items()}
+    out = {}
+    for name, method, cand, actives in SCENARIOS4:
+        sync = jax.jit(make_manual_sync(mesh, specs, shapes, method=method,
+                                        candidates=cand, r=r, k=k))
+        ages = init_age_state_sharded(shapes, method=method)
+        for call, act in enumerate(actives):
+            g = {n: jnp.asarray(v) for n, v in grads.items()}
+            act = None if act is None else jnp.asarray(act)
+            synced, ages, stats = sync(g, ages, active=act)
+            _flat_out(out, name, call, synced, ages, stats)
+    np.savez(os.path.join(out_dir, "jax4.npz"), **out)
+
+
+def start4(leaves, d, r: int, k: int) -> list:
+    """Both four-shard modes in the background on the global gradient
+    ``leaves`` (float32 numpy arrays), writing into ``d``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    np.savez(d / "in4.npz", r=r, k=k,
+             **{f"g_{i:02d}": l for i, l in enumerate(leaves)})
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "..", "src"),
+           "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(here, "sync_ranks.py"), mode,
+         str(d / "in4.npz"), str(d)], env=dict(env, **extra),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode, extra in (
+            ("torch4", {}),
+            ("jax4", {"XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+                      "JAX_PLATFORMS": "cpu"}))]
+
+
+def collect4(d, procs) -> dict:
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    grads, r, k = load4(d / "in4.npz")
+    return dict(torch=[dict(np.load(d / f"torch4_rank{q}.npz"))
+                       for q in range(4)],
+                jax=dict(np.load(d / "jax4.npz")), grads=grads, r=r, k=k)
+
+
+def _slice(x, entries, coord_model: int):
+    idx = tuple(slice(coord_model * (n // 2), (coord_model + 1) * (n // 2))
+                if e == "model" else slice(None)
+                for e, n in zip(entries, x.shape))
+    return x[idx]
+
+
+def check_four_ranks_match_reference(runs):
+    """Each rank's local synced values and ages == the slice of the
+    reference's global outputs at its model coordinate, and its stats ==
+    the reference's, every scenario, both calls, exactly."""
+    want = runs["jax"]
+    grads = runs["grads"]
+    names = sorted(grads)
+    seen = set()
+    for got in runs["torch"]:
+        i, j = (int(c) for c in got["coords"])
+        seen.add((i, j))
+        for name, method, _c, actives in SCENARIOS4:
+            for call in range(len(actives)):
+                for li, n in enumerate(names):
+                    ent = model_spec(grads[n].shape, li)
+                    for part, lead in (("synced", ()), ("ages", (None,)
+                                       if method == "cafe" else ())):
+                        key = f"{name}/{call}/{part}/{n}"
+                        np.testing.assert_array_equal(
+                            got[key], _slice(want[key], lead + ent, j),
+                            err_msg=f"{key} rank ({i}, {j})")
+                for s in ("wire_bytes_per_shard", "active_shards",
+                          "wire_bytes_total", "quarantined_shards"):
+                    key = f"{name}/{call}/stats/{s}"
+                    assert got[key] == want[key], (key, i, j)
+    assert seen == {(0, 0), (0, 1), (1, 0), (1, 1)}
+
+
 if __name__ == "__main__":
     mode, path_in, out_dir = sys.argv[1:4]
     if mode == "jax":
         run_jax(path_in, out_dir)
+    elif mode == "jax4":
+        run_jax4(path_in, out_dir)
     else:
         import torch.multiprocessing as mp
-        init_file = os.path.join(out_dir, "pg_init")
-        mp.spawn(run_torch_rank, args=(path_in, out_dir, init_file),
-                 nprocs=2)
+        init_file = os.path.join(out_dir, f"pg_init_{mode}")
+        rank_fn, n = ((run_torch4_rank, 4) if mode == "torch4"
+                      else (run_torch_rank, 2))
+        mp.spawn(rank_fn, args=(path_in, out_dir, init_file), nprocs=n)

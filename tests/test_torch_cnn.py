@@ -31,12 +31,10 @@ import torch.nn.functional as F
 try:
     import jax
     import jax.numpy as jnp
-    from repro.configs.base import RAgeKConfig as JCfg
     from repro.core import strategies as JS
     from repro.data import federated as JFed
     from repro.data import synthetic as JSyn
     from repro.fl import client as JC
-    from repro.fl.engine import FederatedEngine as JEngine
     from repro.models import paper_nets as JP
     from test_torch_engine import _one_round, _sparse_sum
     from test_torch_participation import partial_rounds
@@ -362,11 +360,25 @@ def _assert_round_matches(jeng, jm, jG, teng, tm, params0=None):
                                   np.asarray(jeng.age.freq))
 
 
-@pytest.mark.parametrize("selection", ["segmented", "scan"])
-def test_cnn_round_matches_reference_rage_k(jax_ref, cifar_data, selection):
+@pytest.fixture(scope="module")
+def rage_round(jax_ref, cifar_data):
+    """The reference's rAge-k CNN round 1 (segmented, masked) and the
+    port's, once for the module: the segmented case checks it and
+    ``reference_G`` takes its gradients, which the reference's engine of
+    the same config draws alike."""
     shards, test = cifar_data
-    jeng, jm, jG, teng, tm = _one_round(shards, test, CIFAR, kind="cnn",
-                                        selection=selection)
+    return _one_round(shards, test, CIFAR, kind="cnn")
+
+
+@pytest.mark.parametrize("selection", ["segmented", "scan"])
+def test_cnn_round_matches_reference_rage_k(jax_ref, cifar_data, selection,
+                                            request):
+    shards, test = cifar_data
+    if selection == "segmented":
+        jeng, jm, jG, teng, tm = request.getfixturevalue("rage_round")
+    else:
+        jeng, jm, jG, teng, tm = _one_round(shards, test, CIFAR,
+                                            kind="cnn", selection=selection)
     assert teng.d == D and tm["idx"].shape == (6, CIFAR["k"])
     _assert_round_matches(jeng, jm, jG, teng, tm)
 
@@ -433,13 +445,9 @@ def test_cnn_random_k_round(cifar_data):
 
 
 @pytest.fixture(scope="module")
-def reference_G(jax_ref, cifar_data):
+def reference_G(rage_round):
     """The reference's last-step gradients of its round 1 (6, d)."""
-    shards, test = cifar_data
-    jeng = JEngine("cnn", shards, test, JCfg(**CIFAR), seed=0)
-    bx, by, _ = jeng._store.draw(jeng._data, jeng.samp, CIFAR["H"])
-    return np.array(jeng._local_phase(jeng.params_s, jeng.opt_s,
-                                      jeng.state_s, (bx, by), None)[3])
+    return np.array(rage_round[2])
 
 
 @pytest.mark.parametrize("cluster_of", [[0, 1, 2, 3, 4, 5],

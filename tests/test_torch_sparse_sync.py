@@ -46,6 +46,7 @@ except ImportError:         # the card's machine: the card's cases alone
 
 from repro_torch import tree
 from repro_torch.configs import get_smoke_config
+from repro_torch.dist import sharding as SH
 from repro_torch.dist import sparse_sync as TS
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as TT
@@ -354,10 +355,16 @@ def test_manual_sync_rejections():
     shapes = {"a": torch.empty((4,), device="meta")}
     with pytest.raises(ValueError, match="buffer_k"):
         TS.make_buffered_sync(mesh, None, shapes, buffer_k=0, r=2, k=1)
-    with pytest.raises(NotImplementedError, match="item 16.9"):
-        TS.make_manual_sync(mesh, {"a": ("model",)}, shapes, r=2, k=1)
-    with pytest.raises(NotImplementedError, match="item 16.9"):
-        make_host_mesh(1, 2, device="cpu")
+    # a (1, 2) spec: each of the leaf's two slices selects from its own
+    # half with the split budget; a (1, 2) host mesh clamps to one process
+    half = TS.make_manual_sync(SH.Mesh({"data": 1, "model": 2}),
+                               {"a": SH.P("model")}, shapes, r=2, k=1)
+    syn, _, st = half({"a": torch.tensor([1.0, -3.0])},
+                      {"a": torch.zeros(2, dtype=torch.int32)})
+    assert torch.equal(syn["a"], torch.tensor([0.0, -3.0]))
+    assert st["wire_bytes_per_shard"] == 6
+    assert make_host_mesh(1, 2, device="cpu").shape == {"data": 1,
+                                                        "model": 1}
     with pytest.raises(ValueError, match="random_k"):
         TS.make_manual_sync(mesh, None, shapes, method="random_k", r=2, k=1)
     sync = TS.make_manual_sync(mesh, None, shapes, r=2, k=1)
