@@ -241,7 +241,18 @@ the last line:
    subprocess on the CPU that runs beside the card's phases; one
    autotune sweep at internlm2's decode shapes and at ``mlp.w1``'s
    slice into a temporary registry (``build/dryrun_smoke/AUTOTUNE.json``),
-   each winner held to its plain twin.
+   each winner held to its plain twin;
+14. train memory (after 13): internlm2-1.8b at full
+   width cut to 2 and 4 layers, one step of
+   ``launch.steps.make_train_step`` (Adam, two microbatches of 4 x 1,024
+   tokens) with remat on and off (``train_memory.py``):
+   ``torch.cuda.max_memory_allocated`` over each step beside the dry
+   run's tracker peak of the same steps on a fake (1, 1) mesh (in a CPU
+   subprocess beside the card's phases); the dry run's growth a layer
+   within ``TRAIN_MEMORY_TOL`` of the card's.
+
+Each phase prints a ``time:`` line when it ends: seconds since the
+build, and whether phase 13's dry run is still running beside it.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels' JSON record sums them over the paths.
@@ -4345,18 +4356,21 @@ def phase_cli(torch, dev, scratch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # the reference CLI's defaults (src/repro/launch/train.py): batch 8, seq
-# 128, Adam lr 1e-3, r 2,048, k 256; steps of each full-width path
+# 128, Adam lr 1e-3, r 2,048, k 256; steps of each full-width path (10
+# until the script's clock needed room for phase 14)
 LM_TRAIN = dict(batch=8, seq=128, lr=1e-3, r=2048, k=256)
-LM_STEPS = 10
+LM_STEPS = 6
 # the profiled steps at the end of each path's LM_STEPS
 LM_PROFILED = 2
-# steps of each path of phases 10-12's archs (cut from LM_STEPS to make
-# room for phase 13)
-ARCH_STEPS = 4
+# steps of each path of phases 10-12's archs, one of them profiled
+# (``SSM_PROFILED``): the first, one timed, one profiled
+ARCH_STEPS = 3
 # phase 13: the production mesh's model axis, and its dry-run combination
 MODEL_AXIS = 16
 DRYRUN_COMBO = ["--arch", "internlm2-1.8b", "--shape", "train_4k",
                 "--sync", "rage_k"]
+# phase 14: the dry run's growth a layer against the card's, relative
+TRAIN_MEMORY_TOL = 0.25
 # the reference example's final losses at --steps 60 on a CPU (the
 # reference's own RNG streams): read beside the port's, never a gate
 REF_EXAMPLE = {"rage_k": 5.3894, "dense": 3.6821}
@@ -4585,15 +4599,15 @@ def lm_sync_parity(torch, dev, mesh) -> str:
 
 
 def lm_profile(torch, fn, steps: int) -> dict:
-    """``fn`` (``steps`` steps) under ``torch.profiler``: host ms a step,
-    device busy ms a step (``busy_union_us``) and the top device kernels
-    by time a step."""
+    """``fn`` (``steps`` steps) under ``torch.profiler``, the device's
+    activity alone (the host's ops of a full-width step made reading the
+    trace take seconds): host ms a step, device busy ms a step
+    (``busy_union_us``) and the top device kernels by time a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5022,9 +5036,59 @@ def finish_dryrun(proc, log, t_start, scratch: str) -> dict:
         f"{rec['collective_bytes_per_dev']}; terms compute "
         f"{t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, "
         f"collective {t['collective_s']:.4e} s (dominant {rec['dominant']}"
-        f"); memory {rec['memory']}; full-depth trace "
-        f"{rec['full_trace']}")
+        f"); memory {rec['memory']}")
     return rec
+
+
+def start_train_memory(scratch: str):
+    """``train_memory.py --dry`` (the dry run's count of phase 14's steps)
+    in a subprocess on the CPU beside the card's phases; its output in
+    ``scratch``."""
+    import atexit
+    os.makedirs(scratch, exist_ok=True)
+    log = open(os.path.join(scratch, "train_memory_dry.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "train_memory.py"), "--dry"],
+        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log
+
+
+def phase_train_memory(torch, dev, proc, log, scratch: str) -> dict:
+    """14: the LM training step's peak memory on the card
+    (``train_memory.real_peaks``: internlm2-1.8b at full width, 2 and 4
+    layers, remat on and off) beside the dry run's count of the same
+    steps on a fake (1, 1) mesh (:func:`start_train_memory`): the growth
+    a layer within ``TRAIN_MEMORY_TOL`` of the card's."""
+    import train_memory as TM
+    t0 = time.perf_counter()
+    card = TM.real_peaks(torch, dev)
+    rc = proc.wait(timeout=600)
+    log.close()
+    text = open(os.path.join(scratch, "train_memory_dry.log")).read()
+    if rc != 0:
+        raise AssertionError(f"train memory: dry run exit {rc}: "
+                             f"{text[-3000:]}")
+    dry = json.loads(text.strip().splitlines()[-1])["dry"]
+    gib = 2 ** 30
+    for remat, row in card["peak"].items():
+        got, want = dry["per_layer"][remat], card["per_layer"][remat]
+        say(f"train memory: {TM.ARCH} at full width, {TM.BATCH} x {TM.SEQ} "
+            f"tokens in {TM.ACCUM} microbatches, {remat}: card peak "
+            + ", ".join(f"{n} layers {b / gib:.4f} GiB"
+                        for n, b in row.items())
+            + f" ({want / gib:.4f} GiB a layer); dry run "
+            + ", ".join(f"{n} layers {int(b) / gib:.4f} GiB"
+                        for n, b in dry["peak"][remat].items())
+            + f" ({got / gib:.4f} GiB a layer, {got / want:.4f} of the "
+            f"card's)")
+        if abs(got / want - 1) > TRAIN_MEMORY_TOL:
+            raise AssertionError(f"train memory: {remat}: the dry run's "
+                                 f"growth {got} against the card's {want}")
+    say(f"train memory: ok in {time.perf_counter() - t0:.1f} s")
+    return {"card": card, "dry": dry}
 
 
 def autotune_sweep(torch, dev, gen, scratch: str, d: int, r: int) -> dict:
@@ -5398,7 +5462,7 @@ def phase_families(torch, dev, scratch: str) -> tuple:
                                        budgets[i][1])
         torch.cuda.empty_cache()
         runs = lm_full_width(torch, dev, mesh, base, batches, cfg, MOE_PATHS,
-                             steps=ARCH_STEPS)
+                             profiled=SSM_PROFILED, steps=ARCH_STEPS)
         for rec in runs.values():
             for k, v in rec["launches"].items():
                 total[k] += v
@@ -5460,8 +5524,9 @@ SSM_PARITY = {"mamba2-780m": (2, 1e-5), "zamba2-2.7b": (6, 1e-4)}
 # allocated and 25.0 GiB reserved but free, cut up by the 3.9 GB float32
 # temporaries of the 963 M-element in_proj); 54 layers would be 2.34 B
 HYBRID_TRAIN_LAYERS = 30
-# the profiled steps of each training path: one, to keep the phase short
-# (the profiler's trace of a step holds some 10,000 kernels and their ops)
+# the profiled steps of each training path of phases 10-12: one, to keep
+# the phases short (the profiler's trace of a step holds some 10,000
+# kernels)
 SSM_PROFILED = 1
 
 
@@ -5635,7 +5700,7 @@ def phase_ssm_hybrid(torch, dev, scratch: str) -> tuple:
         for k, v in rec["launches"].items():
             total[k] += v
         profile_decode(torch, dev, params, get_config(arch), prompts[:, :8],
-                       steps=4)
+                       steps=2)
         served.append(rec)
         del params, prompts, out
         torch.cuda.empty_cache()
@@ -5931,7 +5996,7 @@ def audio_decode(torch, dev) -> tuple:
         with torch.no_grad():
             for pos in range(P + GEN, P + GEN + 4):
                 T.decode_step(params, cfg, {"token": tok}, cache, pos)
-    rec["profile"] = profile_steps(torch, run, 4)
+    rec["profile"] = profile_steps(torch, run, 2)
     del params, cache, frames
     torch.cuda.empty_cache()
     return rec, launches
@@ -5975,7 +6040,7 @@ def phase_vlm_audio(torch, dev, scratch: str) -> tuple:
     rec, params, prompts, out = serve_arch(torch, dev, cfg)
     total = {k: total[k] + v for k, v in rec["launches"].items()}
     rec["profile"] = profile_decode(torch, dev, params, cfg, prompts[:, :8],
-                                    steps=4)
+                                    steps=2)
     served = [rec]
     del params, prompts, out
     torch.cuda.empty_cache()
@@ -6094,8 +6159,17 @@ def main() -> int:
     dry_dir = os.path.join(ROOT, "build", "dryrun_smoke")
     shutil.rmtree(dry_dir, ignore_errors=True)
     dryrun = start_dryrun(dry_dir)
+    train_mem = start_train_memory(dry_dir)
+    t_run = time.perf_counter()
+
+    def lap(label):
+        state = ("running" if dryrun[0].poll() is None
+                 else f"ended {dryrun[0].returncode}")
+        say(f"time: {label} done at {time.perf_counter() - t_run:.1f} s "
+            f"(dry run {state})")
 
     kernels = phase_kernels(torch, dev)
+    lap("kernels")
 
     t0 = time.perf_counter()
     (x, y), test = mnist_like(n_train=60_000, n_test=2_000, seed=0)
@@ -6103,28 +6177,41 @@ def main() -> int:
     say(f"data: mnist_like 60000/2000 and paper_mnist_split in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_parity(torch, dev, shards, test)
+    lap("parity")
     launches, eng, median_round_s, acc = phase_slice(torch, dev, shards,
                                                      test)
+    lap("slice")
     profile = "--profile" in sys.argv[1:]
     if profile:
         phase_profile(torch, eng, median_round_s)
     base, rtop, rtop_median_s = phase_baselines(torch, shards, test, acc)
+    lap("baselines")
     if profile:
         phase_profile(torch, rtop, rtop_median_s)
     del eng, rtop
     chunked = phase_chunked(torch, shards, test)
+    lap("chunked")
     phase_rates_fig3(torch, shards, test, profile)
+    lap("rates")
     phase_partial_parity(torch, dev, shards, test)
+    lap("partial parity")
     partial = phase_partial_slice(torch, shards, test)
+    lap("partial slice")
     compute = phase_compute_plane(torch)
+    lap("compute plane")
     hier = phase_hier_fig3(torch, dev, shards, test)
+    lap("hier fig3")
     scratch = os.path.join(ROOT, "build", "ckpt_smoke")
     shutil.rmtree(scratch, ignore_errors=True)
     resume = phase_resume(torch, shards, test, scratch)
+    lap("resume")
     faults = phase_faults(torch, dev, shards, test, scratch)
+    lap("faults")
     async_fig3 = phase_async_fig3(torch, dev, shards, test, scratch)
+    lap("async")
     del shards, test, x, y
     age_mem, seg_bench = phase_age_memory(torch, dev)
+    lap("age memory")
 
     t0 = time.perf_counter()
     (x, y), test = cifar10_like(n_train=50_000, n_test=10_000, seed=0)
@@ -6134,33 +6221,49 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (shard sizes "
         f"{[len(s[1]) for s in shards]})")
     phase_cifar_parity(torch, dev, shards, test)
+    lap("cifar parity")
     cifar, real = phase_cifar_slice(torch, dev, shards, test, profile)
+    lap("cifar slice")
     cifar_chunked = phase_cifar_chunked(torch, shards, test, profile)
+    lap("cifar chunked")
     fig5_partial = phase_fig5_partial(torch, dev, shards, test)
+    lap("fig5 partial")
     fig5_hier = phase_fig5_hier(torch, shards, test)
+    lap("fig5 hier")
     fig5_resume = phase_fig5_resume(torch, shards, test, scratch)
+    lap("fig5 resume")
     fig5_async = phase_fig5_async(torch, shards, test)
+    lap("fig5 async")
     del shards, test
     cli = phase_cli(torch, dev, os.path.join(scratch, "cli"))
+    lap("cli")
     shutil.rmtree(scratch, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_lm_parity(torch, dev)
+    lap("lm parity")
     smoke = phase_smoke_serve(torch, dev)
+    lap("smoke serve")
     serve = phase_serve(torch, dev, profile)
+    lap("serve")
     torch.cuda.empty_cache()
     long = phase_long_decode(torch, dev)
+    lap("long decode")
     torch.cuda.empty_cache()
     lm, lm_recs = phase_lm_train(torch, dev, os.path.join(ROOT, "build",
                                                           "lm_smoke"))
+    lap("lm train")
     torch.cuda.empty_cache()
     fam, fam_recs = phase_families(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    lap("families")
     torch.cuda.empty_cache()
     ssm, ssm_recs = phase_ssm_hybrid(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    lap("ssm hybrid")
     torch.cuda.empty_cache()
     va, va_recs = phase_vlm_audio(torch, dev, os.path.join(
         ROOT, "build", "lm_smoke"))
+    lap("vlm audio")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     axis = lm_recs["model_axis"]
@@ -6170,6 +6273,9 @@ def main() -> int:
     dry = finish_dryrun(*dryrun, dry_dir)
     say(f"model axis: phase 13's sweep and dry run in "
         f"{time.perf_counter() - t0:.1f} s after phase 12")
+    lap("model axis")
+    phase_train_memory(torch, dev, *train_mem, dry_dir)
+    lap("train memory")
 
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in (

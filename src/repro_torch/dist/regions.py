@@ -19,6 +19,8 @@ on plain tensors none of this runs.
   position shard's partial softmax is combined across its mesh dims as
   split-KV decode combines its splits.
 * :func:`ssd`: the SSD chunk scan, batch and head shards.
+* :func:`merge_heads`: MLA's decode context (B, H, hd) into the output
+  projection, its heads sharded on more than one mesh dim.
 """
 from __future__ import annotations
 
@@ -86,6 +88,31 @@ def _matmul(x, w):
             out.append(Replicate())
     return _local(torch.matmul, (tuple(x_in), tuple(w_in)), tuple(out), dm,
                   x, w)
+
+
+def merge_heads(o, w):
+    """``o.reshape(B, 1, H * hd) @ w`` of a decode step's context o (B, H,
+    hd) and the output projection w (H * hd, d), on local shards: per
+    mesh dim, o's batch shard keeps it (w gathered there), its head shard
+    meets w's rows cut the same way (a partial sum), its partial sum stays
+    one; anything else replicates. (Merging heads sharded on two mesh dims
+    leaves a strided shard that DTensor cannot redistribute.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = o.device_mesh
+    o_in, w_in, out = [], [], []
+    for op in o.placements:
+        if isinstance(op, Shard) and op.dim == 0:
+            o_in.append(op), w_in.append(Replicate()), out.append(op)
+        elif isinstance(op, Shard) and op.dim == 1:
+            o_in.append(op), w_in.append(Shard(0)), out.append(Partial())
+        elif isinstance(op, Partial):
+            o_in.append(op), w_in.append(Replicate()), out.append(op)
+        else:
+            o_in.append(Replicate()), w_in.append(Replicate())
+            out.append(Replicate())
+    return _local(lambda ol, wl: ol.reshape(ol.shape[0], 1, -1) @ wl,
+                  (tuple(o_in), tuple(w_in)), tuple(out), dm, o, w)
 
 
 def preserve(fn):
@@ -420,6 +447,24 @@ def pad(x, pads):
     return _local(lambda t: torch.nn.functional.pad(t, pads),
                   (tuple(x.placements),), tuple(x.placements),
                   x.device_mesh, x)
+
+
+# ---------------------------------------------------------------------------
+# layer stacks
+# ---------------------------------------------------------------------------
+
+
+def unbind(v):
+    """``v.unbind(0)`` of a stacked leaf whose leading dim may be sharded:
+    gathered on those mesh dims first, since DTensor refuses to unbind a
+    sharded dim (its select gathers the whole stack once a layer)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+          for p in v.placements]
+    if pl != list(v.placements):
+        v = v.redistribute(v.device_mesh, pl)
+    return v.unbind(0)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ port of ``repro.launch.dryrun``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --table [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --table [--out DIR] [--ref REF_DIR]
 
 The reference compiles each step for 512 forced host devices and reads
 XLA's cost analysis and the HLO's collectives. The port has no compiled
@@ -409,26 +409,29 @@ def _measure(cfg, shape, mesh, sync, t0) -> dict:
         "useful_flops_ratio": (model_flops / (pm["flops"] * n_chips)
                                if pm["flops"] else 0.0),
         "memory": full["memory"],
-        # the full-depth step's own counts: the port's bytes grow faster
-        # than linearly with depth (each stacked leaf's select backward
-        # writes the whole stack), which the extrapolation cannot see
-        "full_trace": {"flops": full["flops"], "bytes": full["bytes"],
-                       "coll": full["coll"]},
     }
 
 
-def table(out_dir: str) -> str:
-    """The records under ``out_dir`` as one markdown row an arch and a
-    column a shape: for each mesh (16x16, then 2x16x16) the dominant term,
-    the compute, memory and collective terms in seconds and the memory a
-    device in GiB, or why the combination failed or was skipped (the
-    table of PERF.md)."""
+def _records(out_dir: str) -> dict:
     recs = {}
     for fn in sorted(os.listdir(out_dir)):
         if fn.endswith(".json"):
             with open(os.path.join(out_dir, fn)) as f:
                 r = json.load(f)
             recs[(r["arch"], r["shape"], r["mesh"])] = r
+    return recs
+
+
+def table(out_dir: str, ref_dir: str | None = None) -> str:
+    """The records under ``out_dir`` as one markdown row an arch and a
+    column a shape: for each mesh (16x16, then 2x16x16) the dominant term,
+    the compute, memory and collective terms in seconds and the memory a
+    device in GiB, or why the combination failed or was skipped (the
+    table of PERF.md). With ``ref_dir`` (the records of ``python -m
+    repro.launch.dryrun --out DIR``) the reference's memory a device
+    stands beside the port's."""
+    recs = _records(out_dir)
+    refs = _records(ref_dir) if ref_dir else {}
 
     def cell(r):
         if r is None:
@@ -438,9 +441,14 @@ def table(out_dir: str) -> str:
         if r["status"] == "fail":
             return "fail: " + r["error"].split(":")[0]
         t = r["roofline"]
+        ref = refs.get((r["arch"], r["shape"], r["mesh"]))
+        beside = ""
+        if ref_dir:
+            beside = (f" (ref {ref['memory']['per_device_total'] / 2**30:.1f})"
+                      if ref and ref["status"] == "ok" else " (ref none)")
         return (f"{r['dominant'][:3]} {t['compute_s']:.3g} / "
                 f"{t['memory_s']:.3g} / {t['collective_s']:.3g}, "
-                f"{r['memory']['per_device_total'] / 2**30:.1f}")
+                f"{r['memory']['per_device_total'] / 2**30:.1f}{beside}")
 
     rows = ["| Arch | " + " | ".join(INPUT_SHAPES) + " |",
             "|---" * (len(INPUT_SHAPES) + 1) + "|"]
@@ -470,9 +478,12 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.normpath(OUT_DIR))
     ap.add_argument("--table", action="store_true",
                     help="print the records under --out as a table")
+    ap.add_argument("--ref", default=None,
+                    help="with --table: the reference's records, whose "
+                         "memory a device stands beside the port's")
     args = ap.parse_args(argv)
     if args.table:
-        print(table(args.out))
+        print(table(args.out, args.ref))
         return 0
 
     archs = ASSIGNED_ARCHS if args.all or args.arch == "all" else [args.arch]

@@ -175,8 +175,7 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *, lr: float = 1e-4,
                      v.reshape((accum, v.shape[0] // accum) + v.shape[1:]))
                  for k, v in batch.items()}
         gsum = _tree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         losses = []
         for i in range(accum):
             (value, _aux), g = _tree.value_and_grad(

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import regions as RG
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 
 ROPE_DIM = 64
@@ -89,4 +91,6 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, c_kv: torch.Tensor,
     pr = torch.softmax(s * (hd + ROPE_DIM) ** -0.5, dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", pr.to(x.dtype), c_kv[:, :n])
     o = torch.einsum("bhr,rhd->bhd", ctx, p["w_uv"].reshape(R, H, hd))
+    if SH.is_dtensor(o):
+        return RG.merge_heads(o, p["wo"])
     return o.reshape(B, 1, H * hd) @ p["wo"]

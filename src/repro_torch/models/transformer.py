@@ -64,10 +64,16 @@ def require_lm(cfg) -> None:
                          f"n_layers={cfg.n_layers}")
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer i's parameters: index every stacked leaf."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def _layers(tree: dict) -> list[dict]:
+    """Each layer's parameters: every stacked leaf unbound once, so that
+    the backward writes each layer's slice of a leaf's gradient once (one
+    stack), where indexing a layer at a time writes a zero stack of the
+    whole leaf for each layer."""
+    cols = {k: _layers(v) if isinstance(v, dict) else
+            RG.unbind(v) if SH.is_dtensor(v) else v.unbind(0)
             for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -214,13 +220,12 @@ def _ssm_layer_seq(p, cfg, x):
                                                  "embed")))
 
 
-def _hybrid_group_seq(layers, shared, cfg, x, positions, g: int):
-    """Group g of the hybrid stack: its ``attn_every`` SSM layers, then the
-    shared attention block."""
-    G = cfg.attn_every
+def _hybrid_group_seq(group, shared, cfg, x, positions):
+    """One group of the hybrid stack: its ``attn_every`` SSM layers (the
+    list ``group``), then the shared attention block."""
     x = constraint(x, ("batch", "seq_model", "embed"))
-    for i in range(g * G, (g + 1) * G):
-        x = _ssm_block_seq(_layer(layers, i), cfg, x)
+    for p in group:
+        x = _ssm_block_seq(p, cfg, x)
     return _dense_block_seq(shared, cfg, x, positions)[0]
 
 
@@ -245,20 +250,20 @@ def _backbone(params, cfg, x, positions):
     layers and the shared block), as the reference's scans do."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     no_aux = {"lb_loss": zero, "drop_frac": zero}
+    layers = _layers(params["layers"])
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = _remat(_ssm_layer_seq, cfg, _layer(params["layers"], i),
-                       cfg, x)
+        for p in layers:
+            x = _remat(_ssm_layer_seq, cfg, p, cfg, x)
         return x, no_aux
     if cfg.family == "hybrid":
-        for g in range(cfg.n_layers // cfg.attn_every):
-            x = _remat(_hybrid_group_seq, cfg, params["layers"],
-                       params["shared"], cfg, x, positions, g)
+        G = cfg.attn_every
+        for g in range(cfg.n_layers // G):
+            x = _remat(_hybrid_group_seq, cfg, layers[g * G:(g + 1) * G],
+                       params["shared"], cfg, x, positions)
         return x, no_aux
     auxes = []
-    for i in range(cfg.n_layers):
-        x, aux = _remat(_dense_block_seq, cfg, _layer(params["layers"], i),
-                        cfg, x, positions)
+    for p in layers:
+        x, aux = _remat(_dense_block_seq, cfg, p, cfg, x, positions)
         auxes.append(aux)
     if not cfg.is_moe:
         return x, no_aux
@@ -289,9 +294,8 @@ def _encoder(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     _, S, d = frames.shape
     x = frames + _sinusoid(S, d, frames.device).to(frames.dtype)[None]
     positions = torch.arange(S, device=frames.device)
-    for i in range(cfg.encoder_layers):
-        x = _remat(_enc_block_seq, cfg, _layer(params["enc_layers"], i),
-                   cfg, x, positions)
+    for p in _layers(params["enc_layers"]):
+        x = _remat(_enc_block_seq, cfg, p, cfg, x, positions)
     return L.apply_norm(params["enc_norm"], cfg, x)
 
 
@@ -324,9 +328,8 @@ def _decoder_encdec(params, cfg, tokens: torch.Tensor, enc: torch.Tensor):
     x = _lookup(params["embed"]["w"], tokens) \
         + params["dec_pos"]["w"][None, :S]
     positions = torch.arange(S, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _remat(_dec_block_seq, cfg, _layer(params["layers"], i), cfg, x,
-                   positions, enc)
+    for p in _layers(params["layers"]):
+        x = _remat(_dec_block_seq, cfg, p, cfg, x, positions, enc)
     return L.apply_norm(params["norm_f"], cfg, x)
 
 
@@ -524,8 +527,7 @@ def decode_step(params, cfg, inputs, cache, pos: int):
         x = decode(params, cfg, x, cache, pos)
         x = L.apply_norm(params["norm_f"], cfg, x)
         return _logits(params, cfg, x[:, 0]), cache
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_layers(params["layers"])):
         a = L.apply_norm(p["ln1"], cfg, x)
         if cfg.use_mla:
             x = x + MLA.mla_decode(p["attn"], cfg, a, cache["c_kv"][i],
@@ -547,8 +549,7 @@ def _ssm_decode(params, cfg, x, cache, pos: int):
     (a ring at pos % S under the window)."""
     G = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     shared = params.get("shared")
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_layers(params["layers"])):
         a = L.apply_norm(p["ln"], cfg, x)
         x = x + SSM.ssm_decode_step(p["ssm"], cfg, a, cache["conv"][i],
                                     cache["state"][i])
@@ -570,8 +571,7 @@ def _audio_decode(params, cfg, x, cache, pos: int):
     ``decode_attention`` over the whole cross cache, read as it stands."""
     last = min(pos, cfg.max_target_len - 1)
     x = x + params["dec_pos"]["w"][last][None, None, :]
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_layers(params["layers"])):
         a = L.apply_norm(p["ln1"], cfg, x)
         x = x + _attn_decode(p["self_attn"], cfg, a, cache["k"][i],
                              cache["v"][i], last)

@@ -6,7 +6,9 @@ _count=2``). And a (data 2, model 2) mesh of the model-sharded sync, for
 ``tests/test_torch_sharding.py``: the port on four gloo ranks, each
 passing its local slices, or the reference on four forced host devices
 (the ``torch4`` and ``jax4`` modes, :func:`start4`, :func:`collect4`,
-:func:`check_four_ranks_match_reference`).
+:func:`check_four_ranks_match_reference`). The ``torch4`` ranks also
+run ``regions.merge_heads`` on that mesh (:func:`run_merge_heads`,
+:func:`check_merge_heads`).
 
   python tests/sync_ranks.py torch IN.npz OUT_DIR
   python tests/sync_ranks.py jax IN.npz OUT_DIR
@@ -64,7 +66,12 @@ def load(path):
 
 
 def rank_grads(grads, q, distinct, call, validate):
-    """Rank q's gradient leaves for one call of a scenario."""
+    """Rank q's gradient leaves for one call of a scenario: distinct,
+    rank 1's are rank 0's reversed and scaled and from rank 2 on rank 0's
+    scaled by 1 + 0.3 q (the same picks, so three or more uploads land on
+    one coordinate)."""
+    if distinct and q >= 2:
+        return {k: v * np.float32(1 + 0.3 * q) for k, v in grads[0].items()}
     g = grads[q] if distinct else grads[0]
     if distinct and validate and q == 1 and call == 1:
         g = {k: v * np.float32(1e9) for k, v in g.items()}
@@ -79,7 +86,19 @@ def _flat_out(out, name, call, synced, ages, stats):
         out[f"{name}/{call}/stats/{k}"] = np.asarray(v).astype(np.float64)
 
 
-def run_torch_rank(rank, path_in, out_dir, init_file):
+def _actives(act, n: int):
+    """A scenario's two-rank activity mask cycled over ``n`` ranks."""
+    return None if act is None else tuple(act[q % 2] for q in range(n))
+
+
+def _out_name(kind: str, n: int, rank: int = 0) -> str:
+    if kind == "torch":
+        return (f"torch_rank{rank}.npz" if n == 2
+                else f"torch_{n}ranks_rank{rank}.npz")
+    return "jax.npz" if n == 2 else f"jax_{n}ranks.npz"
+
+
+def run_torch_rank(rank, path_in, out_dir, init_file, world=2):
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
     import torch
     import torch.distributed as dist
@@ -88,9 +107,9 @@ def run_torch_rank(rank, path_in, out_dir, init_file):
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=2)
+                            rank=rank, world_size=world)
     grads, r, k = load(path_in)
-    mesh = make_host_mesh(2, 1, device="cpu")
+    mesh = make_host_mesh(world, 1, device="cpu")
     shapes = {n: torch.empty(v.shape, device="meta")
               for n, v in grads[0].items()}
     out = {}
@@ -108,6 +127,7 @@ def run_torch_rank(rank, path_in, out_dir, init_file):
         for call, act in enumerate(actives):
             g = {n: torch.from_numpy(v.copy()) for n, v in
                  rank_grads(grads, rank, distinct, call, validate).items()}
+            act = _actives(act, world)
             act = None if act is None else torch.tensor(act)
             if bk:
                 synced, ages, buf, stats = sync(g, ages, buf, active=act)
@@ -118,11 +138,16 @@ def run_torch_rank(rank, path_in, out_dir, init_file):
                       {n: t.numpy() for n, t in ages.items()},
                       {n: (v if isinstance(v, int) else v.numpy())
                        for n, v in stats.items()})
-    np.savez(os.path.join(out_dir, f"torch_rank{rank}.npz"), **out)
+    np.savez(os.path.join(out_dir, _out_name("torch", world, rank)), **out)
     dist.destroy_process_group()
 
 
-def run_jax(path_in, out_dir):
+def run_jax(path_in, out_dir, n=2):
+    """The reference on ``n`` forced host devices (a (n, 1) mesh). At two
+    devices the identical scenarios alone; from three on every scenario,
+    each device's gradients its rank's (:func:`rank_grads`): a replicated
+    array whose device buffers differ, which the sync's ``shard_map``
+    reads as each data shard's own gradient."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
     import jax
     import jax.numpy as jnp
@@ -132,15 +157,25 @@ def run_jax(path_in, out_dir):
                                         make_manual_sync)
     from repro.launch.mesh import make_host_mesh
 
+    from jax.sharding import NamedSharding
+
     grads, r, k = load(path_in)
-    mesh = make_host_mesh(2, 1)
-    assert mesh.shape["data"] == 2, mesh.shape
+    n_data = n
+    mesh = make_host_mesh(n_data, 1)
+    assert mesh.shape["data"] == n_data, mesh.shape
     specs = {n: P() for n in grads[0]}
     shapes = {n: jax.ShapeDtypeStruct(v.shape, v.dtype)
               for n, v in grads[0].items()}
+    devices = list(mesh.devices[:, 0])
+
+    def per_device(arrays):
+        return jax.make_array_from_single_device_arrays(
+            arrays[0].shape, NamedSharding(mesh, P()),
+            [jax.device_put(a, dv) for a, dv in zip(arrays, devices)])
+
     out = {}
     for name, method, cand, validate, actives, bk, distinct in SCENARIOS:
-        if distinct:
+        if distinct and n_data == 2:
             continue
         kw = dict(method=method, candidates=cand, r=r, k=k,
                   validate=validate)
@@ -153,21 +188,27 @@ def run_jax(path_in, out_dir):
         sync = jax.jit(base)
         ages = init_age_state_sharded(shapes, method=method)
         for call, act in enumerate(actives):
-            g = {n: jnp.asarray(v) for n, v in grads[0].items()}
+            per = [rank_grads(grads, q, distinct, call, validate)
+                   for q in range(n_data)]
+            g = {name_: per_device([p[name_] for p in per])
+                 for name_ in grads[0]}
+            act = _actives(act, n_data)
             act = None if act is None else jnp.asarray(act)
             if bk:
                 synced, ages, buf, stats = sync(g, ages, buf, active=act)
             else:
                 synced, ages, stats = sync(g, ages, active=act)
             _flat_out(out, name, call, synced, ages, stats)
-    np.savez(os.path.join(out_dir, "jax.npz"), **out)
+    np.savez(os.path.join(out_dir, _out_name("jax", n_data)), **out)
 
 
-def start(leaves, d, r: int, k: int) -> list:
+def start(leaves, d, r: int, k: int, worlds=(2,)) -> list:
     """Both modes in the background on ``leaves`` (rank 0's gradient
     leaves, float32 numpy arrays; rank 1's are rank 0's reversed and
-    scaled by 0.7, the distinct scenarios), writing into the directory
-    ``d`` (a ``pathlib.Path``). Returns the two processes."""
+    scaled by 0.7, the distinct scenarios), for each world size in
+    ``worlds`` (one spawn of its gloo ranks, one reference on as many
+    devices), writing into the directory ``d`` (a ``pathlib.Path``).
+    Returns the processes, two a world size."""
     here = os.path.dirname(os.path.abspath(__file__))
     g1 = [(np.ascontiguousarray(l.reshape(-1)[::-1]) * np.float32(0.7))
           .reshape(l.shape) for l in leaves]
@@ -178,32 +219,36 @@ def start(leaves, d, r: int, k: int) -> list:
            "OMP_NUM_THREADS": "1"}
     return [subprocess.Popen(
         [sys.executable, os.path.join(here, "sync_ranks.py"), mode,
-         str(d / "in.npz"), str(d)], env=dict(env, **extra),
+         str(d / "in.npz"), str(d), str(n)], env=dict(env, **extra),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for mode, extra in (
+        for n in worlds for mode, extra in (
             ("torch", {}),
-            ("jax", {"XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-                     "JAX_PLATFORMS": "cpu"}))]
+            ("jax", {"XLA_FLAGS": "--xla_force_host_platform_device_count="
+                                  f"{n}", "JAX_PLATFORMS": "cpu"}))]
 
 
-def collect(d, procs) -> dict:
-    """Wait for :func:`start`'s processes; their outputs, the gradients,
-    r and k."""
+def collect(d, procs, n: int = 2) -> dict:
+    """Wait for :func:`start`'s processes of world size ``n``; their
+    outputs, the gradients, r and k."""
     for p in procs:
+        if p.args[-1] != str(n):
+            continue
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err[-3000:]
     grads, r, k = load(d / "in.npz")
-    return dict(torch=[dict(np.load(d / f"torch_rank{q}.npz"))
-                       for q in (0, 1)],
-                jax=dict(np.load(d / "jax.npz")), grads=grads, r=r, k=k)
+    return dict(torch=[dict(np.load(d / _out_name("torch", n, q)))
+                       for q in range(n)],
+                jax=dict(np.load(d / _out_name("jax", n))), grads=grads,
+                r=r, k=k)
 
 
 def check_ranks_agree(runs):
-    """Both ranks hold the same synced values, ages and stats."""
-    a, b = runs["torch"]
-    assert a.keys() == b.keys()
-    for key in a:
-        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    """Every rank holds rank 0's synced values, ages and stats."""
+    a = runs["torch"][0]
+    for b in runs["torch"][1:]:
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 def check_identical_match_reference(runs):
@@ -213,6 +258,51 @@ def check_identical_match_reference(runs):
     assert want and set(want) <= set(got)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# the reference's synced values against the port's from three data ranks
+# on, where they may differ: within this, relative to each value
+RANKS_RTOL = 1e-6
+
+
+def exact_at(scen, call, n: int) -> bool:
+    """Whether the reference's synced values of ``scen``'s call ``call``
+    at ``n`` data ranks are the port's bitwise. Its union scatter sums
+    the uploads in rank order, as ``sparse_aggregate`` does; but without
+    a mask or the gate it divides by the static shard count, which XLA
+    turns into a product with its reciprocal (exact at 2 and 4 ranks, not
+    at 3), and its dense mean sums in its all-reduce's order, not gloo's."""
+    _name, method, _cand, validate, actives, _bk, _distinct = scen
+    if method == "dense":
+        return n == 2
+    return (n & (n - 1)) == 0 or validate or actives[call] is not None
+
+
+def check_ranks_match_reference(runs, n: int):
+    """Rank 0 == the reference on ``n`` devices, every scenario (distinct
+    gradients too), both calls: ages and stats exactly, synced values
+    exactly where :func:`exact_at` says so, else within ``RANKS_RTOL``
+    with the same support."""
+    got, want = runs["torch"][0], runs["jax"]
+    n_exact = 0
+    for scen in SCENARIOS:
+        for call in range(len(scen[4])):
+            pre = f"{scen[0]}/{call}/"
+            keys = [k for k in want if k.startswith(pre)]
+            assert keys, pre
+            exact = exact_at(scen, call, n)
+            n_exact += exact
+            for key in keys:
+                if "/synced/" in key and not exact:
+                    np.testing.assert_array_equal(got[key] != 0,
+                                                  want[key] != 0, key)
+                    np.testing.assert_allclose(got[key], want[key],
+                                               rtol=RANKS_RTOL, atol=0,
+                                               err_msg=key)
+                else:
+                    np.testing.assert_array_equal(got[key], want[key],
+                                                  err_msg=key)
+    return n_exact
 
 
 def _bf16(x):
@@ -370,9 +460,60 @@ def run_torch4_rank(rank, path_in, out_dir, init_file):
                       {n: t.numpy() for n, t in ages.items()},
                       {n: (v if isinstance(v, int) else v.numpy())
                        for n, v in stats.items()})
+    run_merge_heads(out)
     out["coords"] = np.asarray([mesh.rank, mesh.model_rank])
     np.savez(os.path.join(out_dir, f"torch4_rank{rank}.npz"), **out)
     dist.destroy_process_group()
+
+
+# regions.merge_heads's cases: the context o's (B, H, hd) placements on
+# the (data, model) mesh, "partial" a partial sum, "batch" and "heads"
+# a shard of that dim (heads on both: nested, as deepseek's pod x model)
+MERGE_CASES = {"partial_heads": ("partial", "heads"),
+               "batch_heads": ("batch", "heads"),
+               "heads_heads": ("heads", "heads")}
+MERGE_SHAPE = (4, 8, 6, 10)       # B, H, hd, d
+MERGE_TOL = 1e-5                  # rtol and atol: float32 partial sums
+
+
+def run_merge_heads(out):
+    """Each case's ``merge_heads(o, wo)`` gathered whole on a real (data 2,
+    model 2) mesh, beside the plain ``o.reshape(B, 1, H * hd) @ wo`` of
+    the global context (the sum of the two data ranks' partial sums)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.dist import regions as RG
+
+    B, H, hd, d = MERGE_SHAPE
+    g = torch.Generator().manual_seed(5)
+    parts = torch.randn(2, B, H, hd, generator=g)
+    w = torch.randn(H * hd, d, generator=g)
+    o = parts.sum(0)
+    out["merge_heads/plain"] = (o.reshape(B, 1, H * hd) @ w).numpy()
+    dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    coord = dm.get_coordinate()
+    kinds = {"partial": Partial(), "batch": Shard(0), "heads": Shard(1)}
+    wd = DTensor.from_local(w, dm, [Replicate(), Replicate()])
+    for case, pls in MERGE_CASES.items():
+        x = parts[coord[0]] if pls[0] == "partial" else o
+        for p, c in zip(pls, coord):
+            if p != "partial":
+                x = x.chunk(2, dim=kinds[p].dim)[c]
+        od = DTensor.from_local(x.contiguous(), dm, [kinds[p] for p in pls])
+        out[f"merge_heads/{case}"] = RG.merge_heads(od, wd).full_tensor(
+            ).numpy()
+
+
+def check_merge_heads(runs):
+    """Every rank's gathered ``merge_heads`` == the plain product within
+    ``MERGE_TOL``, every case."""
+    for got in runs["torch"]:
+        for case in MERGE_CASES:
+            np.testing.assert_allclose(
+                got[f"merge_heads/{case}"], got["merge_heads/plain"],
+                rtol=MERGE_TOL, atol=MERGE_TOL,
+                err_msg=f"{case} rank {got['coords']}")
 
 
 def run_jax4(path_in, out_dir):
@@ -469,13 +610,16 @@ def check_four_ranks_match_reference(runs):
 
 if __name__ == "__main__":
     mode, path_in, out_dir = sys.argv[1:4]
+    world = int(sys.argv[4]) if len(sys.argv) > 4 else 2
     if mode == "jax":
-        run_jax(path_in, out_dir)
+        run_jax(path_in, out_dir, world)
     elif mode == "jax4":
         run_jax4(path_in, out_dir)
     else:
         import torch.multiprocessing as mp
-        init_file = os.path.join(out_dir, f"pg_init_{mode}")
-        rank_fn, n = ((run_torch4_rank, 4) if mode == "torch4"
-                      else (run_torch_rank, 2))
-        mp.spawn(rank_fn, args=(path_in, out_dir, init_file), nprocs=n)
+        if mode == "torch4":
+            mp.spawn(run_torch4_rank, args=(path_in, out_dir, os.path.join(
+                out_dir, "pg_init_torch4")), nprocs=4)
+        else:
+            mp.spawn(run_torch_rank, args=(path_in, out_dir, os.path.join(
+                out_dir, f"pg_init_torch_{world}"), world), nprocs=world)

@@ -9,8 +9,12 @@ configs (one layer) on a (1, 1) and a fake (2, 2) mesh and count FLOPs
 above 0. The counter reads local shards: a column-parallel product on a
 (1, 2) mesh counts half the whole product's FLOPs, and the output bytes
 of a known redistribution's collective. The 1- and 2-unit extrapolation
-equals the direct count of FLOPs at 4 layers. ``roofline_terms``
-is the reference's formula over the H100 constants.
+equals the direct count of FLOPs and bytes at 4 layers. ``roofline_terms``
+is the reference's formula over the H100 constants. deepseek-v2-236b's
+MLA decode traces on a mesh whose pod and data axes make its context a
+partial sum. The training step's memory a device grows from 1 to 2
+full-width layers by no more than the reference's growth (its compiled
+step's memory analysis, in a subprocess) plus a stated slack.
 
 Each test leaves no process group behind (``fake_group`` destroys it):
 the fake group is process-wide state in an xdist worker.
@@ -26,6 +30,8 @@ twin within 1e-5 of the plain attention at the tuned split count).
 """
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -39,7 +45,7 @@ import torch.distributed as dist
 from repro.kernels import autotune as JA
 from repro.launch import mesh as JM
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import INPUT_SHAPES, get_config, get_smoke_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels import autotune as A
 from repro_torch.kernels import decode_attention as DA
@@ -47,6 +53,7 @@ from repro_torch.kernels import maghist as MH
 from repro_torch.kernels import report as RP
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
+from repro_torch.launch.steps import lower_combo
 
 ARCHS = ["internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-780m",
          "zamba2-2.7b", "whisper-large-v3", "deepseek-v2-236b"]
@@ -103,10 +110,10 @@ def test_counter_reads_local_shards():
 
 
 def test_extrapolation_is_exact():
-    """FLOPs of a 4-layer smoke config: the 1- and 2-unit extrapolation
-    equals the direct count. (Bytes do not extrapolate: a stacked leaf's
-    select backward writes the whole stack once a layer, so they grow
-    with the square of the depth.)"""
+    """FLOPs and bytes of a 4-layer smoke config: the 1- and 2-unit
+    extrapolation equals the direct count (each stacked leaf is unbound
+    once a step, so its gradient's slices are written once, not a zero
+    stack a layer)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.dist import sharding as SH
@@ -120,7 +127,7 @@ def test_extrapolation_is_exact():
         pm = D.probe_roofline(cfg, shape, mesh)
         direct = D.trace(lower_combo(cfg, shape, mesh)[0], memory=False)
     assert pm["flops"] == direct["flops"]
-    assert pm["bytes"] <= direct["bytes"]
+    assert pm["bytes"] == direct["bytes"]
 
 
 def test_roofline_terms_are_the_reference_formula():
@@ -151,6 +158,87 @@ def test_skipped_combination_record(tmp_path):
     assert rec["status"] == "skip"
     on_disk = json.load(open(tmp_path / "whisper-large-v3_long_500k_16x16.json"))
     assert on_disk == rec
+
+
+def test_mla_decode_on_a_pod_mesh():
+    """deepseek-v2-236b's smoke decode step on a fake (pod 2, data 4,
+    model 2) mesh: the absorbed decode's context (B, H, hd), a partial
+    sum over pod and data with its heads over model, meets ``wo`` through
+    ``regions.merge_heads`` (its reshape to (B, 1, H x hd) left a strided
+    shard that DTensor could not redistribute)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import sharding as SH
+
+    cfg = get_smoke_config("deepseek-v2-236b").replace(n_layers=1)
+    with D.fake_group(16):
+        mesh = SH.from_device_mesh(init_device_mesh(
+            "cpu", (2, 4, 2), mesh_dim_names=("pod", "data", "model")))
+        lowered, kind = lower_combo(cfg, SHAPES["decode"], mesh)
+        rec = D.trace(lowered, memory=False)
+    assert kind == "decode" and rec["flops"] > 0
+    assert not dist.is_initialized()
+
+
+# The training step's memory a device against the reference's, the
+# smallest full-width config whose growth a layer showed the fault: each
+# microbatch's float32 gradient sum was made at the parameters' global
+# shape on every device (0.43 GiB a layer here, 5.2 for qwen1.5-110b).
+GROWTH_ARCH, GROWTH_SHAPE = "internlm2-1.8b", "train_4k"
+GROWTH_SLACK_MIB = 560
+
+_REF_GROWTH = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=256 "
+                           + os.environ.get("XLA_FLAGS", ""))
+from repro.configs import INPUT_SHAPES, get_config
+from repro.launch.mesh import make_production_mesh
+from repro.launch.steps import lower_combo
+mesh = make_production_mesh(multi_pod=False)
+out = []
+for n in (1, 2):
+    cfg = get_config(sys.argv[1]).replace(n_layers=n)
+    ma = lower_combo(cfg, INPUT_SHAPES[sys.argv[2]], mesh)[0].compile(
+        ).memory_analysis()
+    out.append(ma.argument_size_in_bytes + ma.temp_size_in_bytes
+               + ma.output_size_in_bytes - ma.alias_size_in_bytes)
+print(json.dumps(out))
+"""
+
+
+def test_training_memory_grows_as_the_reference():
+    """internlm2-1.8b at full width x train_4k x 16x16: the dry run's
+    memory a device grows from 1 to 2 layers by at most the reference's
+    growth (XLA's memory analysis of its compiled step, on 256 forced host
+    devices in a subprocess, as ``repro.launch.dryrun`` compiles it) plus
+    ``GROWTH_SLACK_MIB``. The reference's 1-layer step holds more than its
+    2-layer one (2.7547 and 2.5273 GiB); the port's 1.8745 and 2.0737
+    GiB, 2.81 and 3.24 before the gradient sum took its parameter's
+    placements."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    ref = subprocess.Popen([sys.executable, "-c", _REF_GROWTH, GROWTH_ARCH,
+                            GROWTH_SHAPE], env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        port = []
+        for n in (1, 2):
+            cfg = get_config(GROWTH_ARCH).replace(n_layers=n)
+            with D.fake_group(256):
+                mesh = M.make_production_mesh(multi_pod=False)
+                lowered, _ = lower_combo(cfg, INPUT_SHAPES[GROWTH_SHAPE],
+                                         mesh)
+                port.append(D.trace(lowered)["memory"]["per_device_total"])
+        out, err = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+    assert ref.returncode == 0, err[-3000:]
+    want = json.loads(out.strip().splitlines()[-1])
+    grow, ref_grow = port[1] - port[0], want[1] - want[0]
+    assert grow <= ref_grow + GROWTH_SLACK_MIB * 2 ** 20, (port, want)
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

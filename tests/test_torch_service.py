@@ -11,7 +11,13 @@
    alone) and fixed per-client batches handed to both through a store
    stub, in report and dispatch modes: event order, staleness, clock,
    versions and requests exactly; losses and params within rtol 1e-5,
-   atol 1e-6.
+   atol 1e-6. The CIFAR CNN's service (Network-2 with its BatchNorm
+   state, ``test_torch_cnn.py``'s sizes: 6 clients, r 200, k 20, H 1,
+   batch 8) over one flush window the same way in dispatch mode: the
+   solicited candidates, the selected indices, the ages and the window
+   exactly; losses, params and BatchNorm state within rtol 1e-4, atol
+   1e-6 (``test_torch_cnn.py``'s round tolerance: a backward through four
+   BatchNorms).
 3. The port alone: chunk invariance; the event order equals a host
    numpy replay of the port's own latency draws; a flush at exactly every
    K-th landing; V = 1 reads fresh; dispatch mode's disjoint
@@ -40,9 +46,9 @@ from repro_torch.checkpoint import AsyncCheckpointer
 from repro_torch.configs.base import RAgeKConfig
 from repro_torch.core.compression import (bytes_per_index, bytes_per_round,
                                           downlink_bytes_per_round)
-from repro_torch.data.federated import paper_mnist_split
+from repro_torch.data.federated import paper_cifar_split, paper_mnist_split
 from repro_torch.data.pipeline import DeviceShardStore
-from repro_torch.data.synthetic import mnist_like
+from repro_torch.data.synthetic import cifar10_like, mnist_like
 from repro_torch.fl import service as TSvc
 from repro_torch.fl.engine import FederatedEngine
 from repro_torch.fl.faults import FaultModel
@@ -214,6 +220,77 @@ def test_flush_windows_match_reference(mnist_setup, reference_windows, mode):
                                       np.asarray(jsvc.state.solicited))
         np.testing.assert_array_equal(tsvc.state.inflight.numpy(),
                                       np.asarray(jsvc.state.inflight))
+
+
+CNN_HP = dict(r=200, k=20, H=1, M=2, lr=1e-3, batch_size=8)
+CNN_TOL = dict(rtol=1e-4, atol=1e-6)
+K_CNN, V_CNN, N_CNN = 4, 2, 6
+
+
+@pytest.fixture(scope="module")
+def cnn_reference():
+    """One flush window of the reference's CNN service in dispatch mode,
+    its batches fixed through the store stub."""
+    (x, y), test = cifar10_like(n_train=600, n_test=240, seed=0)
+    shards = paper_cifar_split(x, y, seed=0)
+    hp = dict(CNN_HP, buffer_k=K_CNN, version_window=V_CNN,
+              staleness_eta=0.5)
+    jlat = JL.LatencyModel(N_CNN, hetero=1.0, jitter=0.0, seed=0)
+    jsvc = JSvc.AsyncService("cnn", shards, test,
+                             JCfg(method="rage_k", **hp), seed=0,
+                             latency=jlat, solicit="dispatch")
+    bx, by, _ = jsvc._store.draw(jsvc._data, jsvc.state.samp, CNN_HP["H"])
+    jsvc._store = _JStub(bx, by)
+    params0 = jax.tree_util.tree_map(np.asarray, jsvc.state.g_params)
+    state0 = jax.tree_util.tree_map(np.asarray, jsvc._state0)
+    sol0 = np.asarray(jsvc.state.solicited)
+    jm = jsvc._advance(K_CNN)
+    return shards, test, hp, jlat, bx, by, params0, state0, sol0, jsvc, jm
+
+
+def test_cnn_flush_window_matches_reference(cnn_reference):
+    shards, test, hp, jlat, bx, by, params0, state0, sol0, jsvc, jm = \
+        cnn_reference
+    tsvc = AsyncService(
+        "cnn", shards, test, RAgeKConfig(method="rage_k", **hp), seed=0,
+        device="cpu", solicit="dispatch",
+        params=params_from_jax(params0, "cpu"),
+        state=params_from_jax(state0, "cpu"),
+        latency=LatencyModel(N_CNN, hetero=1.0, jitter=0.0, device="cpu",
+                             base_s=np.asarray(jlat.base_s)))
+    np.testing.assert_array_equal(tsvc.state.solicited.numpy(), sol0)
+    tsvc._store = _TStub(torch.from_numpy(np.array(bx)),
+                         torch.from_numpy(np.array(by)).long())
+    tm = tsvc._advance(K_CNN)
+    for key in ("client", "staleness", "version", "flushed", "clock",
+                "idx"):
+        np.testing.assert_array_equal(tm[key], np.asarray(jm[key]), key)
+    assert tm["flushed"].tolist() == [False] * (K_CNN - 1) + [True]
+    np.testing.assert_allclose(tm["loss"], np.asarray(jm["loss"]),
+                               **CNN_TOL)
+    np.testing.assert_allclose(
+        tsvc.state.g_params.numpy(),
+        np.asarray(JC.flatten_tree(jsvc.state.g_params)), **CNN_TOL)
+    for v in range(V_CNN):
+        np.testing.assert_allclose(
+            tsvc.state.ring[v].numpy(), np.asarray(JC.flatten_tree(
+                jax.tree_util.tree_map(lambda x: x[v], jsvc.state.ring))),
+            **CNN_TOL)
+    for name in ("cluster_age", "freq"):
+        np.testing.assert_array_equal(
+            getattr(tsvc.age, name).numpy(),
+            np.asarray(getattr(jsvc.state.age, name)), name)
+    for name in ("solicited", "inflight", "next_done"):
+        np.testing.assert_array_equal(getattr(tsvc.state, name).numpy(),
+                                      np.asarray(getattr(jsvc.state, name)),
+                                      name)
+    jstate = jsvc.state.state_s
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jstate)[0]:
+        got = tsvc.state.state_s
+        for k in path:
+            got = got[k.key]
+        np.testing.assert_allclose(got.numpy(), np.asarray(leaf),
+                                   **CNN_TOL)
 
 
 # ---------------------------------------------------------------------------

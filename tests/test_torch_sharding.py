@@ -18,7 +18,9 @@ local slices) against the reference's ``shard_map`` exchange on four
 forced host devices (``jax4``), identical gradients on both data ranks:
 every rank's synced values and ages equal the slice of the reference's
 at its coordinates, and the stats equal, exactly (rage_k with threshold
-and sort candidates, a participation mask, cafe, dense). MoE's token
+and sort candidates, a participation mask, cafe, dense). On the same
+ranks, ``regions.merge_heads`` (MLA's decode output projection) equals
+the plain product within float32 rounding. MoE's token
 blocks: ``apply_moe`` under a data-2 mesh at granite's smoke config with
 512 tokens (two blocks of 256, each with its own capacity) against the
 reference's under a mesh of the same shape, float32, within 1e-5 (y),
@@ -232,9 +234,21 @@ def test_local_slice_matches_row_major_coords():
 # -- the model-sharded manual sync on four ranks ---------------------------
 
 
-def test_four_ranks_match_reference(four_ranks):
-    sync_ranks.check_four_ranks_match_reference(
-        sync_ranks.collect4(*four_ranks))
+@pytest.fixture(scope="module")
+def four_runs(four_ranks):
+    return sync_ranks.collect4(*four_ranks)
+
+
+def test_four_ranks_match_reference(four_runs):
+    sync_ranks.check_four_ranks_match_reference(four_runs)
+
+
+def test_merge_heads_on_four_ranks(four_runs):
+    """``regions.merge_heads`` on the four gloo ranks' (data 2, model 2)
+    mesh, the context's heads sharded on model and its batch, heads or a
+    partial sum on data, equals the plain ``reshape @ wo`` within
+    ``sync_ranks.MERGE_TOL``."""
+    sync_ranks.check_merge_heads(four_runs)
 
 
 # -- MoE's token blocks under a data-2 mesh --------------------------------

@@ -22,6 +22,14 @@ exactly.
   manual sync on a 2-device CPU mesh (a subprocess with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=2``), and distinct
   gradients against a numpy oracle of the union semantics.
+- Three and four gloo ranks (one spawn a world size), every scenario,
+  distinct gradients too (from rank 2 on rank 0's scaled, so three or
+  more uploads land on one coordinate), against the reference on as many
+  forced devices, each device's buffer its rank's gradient: ages and
+  stats exactly; synced values bitwise where the reference's arithmetic
+  is the port's (its scatter sums in rank order, as ``sparse_aggregate``
+  does), else within ``sync_ranks.RANKS_RTOL`` (``sync_ranks.exact_at``:
+  its static 1/3 and its dense all-reduce's own order).
 """
 import numpy as np
 import pytest
@@ -94,7 +102,8 @@ def lm(tmp_path_factory):
         params, jb)
     d = tmp_path_factory.mktemp("ranks")
     procs = sync_ranks.start(
-        [np.asarray(l) for l in jax.tree_util.tree_leaves(grads)], d, R, K)
+        [np.asarray(l) for l in jax.tree_util.tree_leaves(grads)], d, R, K,
+        worlds=(2, 3, 4))
     yield dict(cfg=cfg, params=params, grads=grads, ranks=(d, procs))
     for p in procs:
         if p.poll() is None:
@@ -421,6 +430,27 @@ def test_two_ranks_distinct_grads_match_oracle(two_ranks):
     picks, divided by the active count, the hit-based ages and the
     stats, against the numpy oracle, exactly."""
     sync_ranks.check_distinct_match_oracle(two_ranks)
+
+
+@pytest.fixture(scope="module", params=[3, 4])
+def more_ranks(lm, request):
+    """The scenarios on three or four gloo ranks and on the reference's
+    mesh of as many devices (started by ``lm``)."""
+    return request.param, sync_ranks.collect(*lm["ranks"], request.param)
+
+
+def test_more_ranks_agree(more_ranks):
+    sync_ranks.check_ranks_agree(more_ranks[1])
+
+
+def test_more_ranks_match_reference(more_ranks):
+    """Every scenario on n gloo ranks against the reference's manual sync
+    on n devices; at four ranks every sparse call is bitwise."""
+    n, runs = more_ranks
+    exact = sync_ranks.check_ranks_match_reference(runs, n)
+    calls = sum(len(s[4]) for s in sync_ranks.SCENARIOS)
+    dense = sum(len(s[4]) for s in sync_ranks.SCENARIOS if s[1] == "dense")
+    assert exact == (calls - dense if n == 4 else 8), exact
 
 
 # ---------------------------------------------------------------------------
