@@ -35,6 +35,8 @@ reference's: nothing in either package fills them from the encoder.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -341,12 +343,15 @@ def _unembed_w(params, cfg):
 
 def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
                  labels: torch.Tensor, vocab_size: int,
-                 chunk: int = 256) -> torch.Tensor:
+                 chunk: int = 256, *, remat: bool = False) -> torch.Tensor:
     """Mean cross entropy over B * S without the (B, S, Vp) logits at
     once: the sequence in chunks of ``chunk`` positions (the last padded,
     its rows weighted 0), each chunk's logits in float32 from the inputs
     as stored, the padded vocabulary (``w_unembed`` (d, Vp), Vp >=
-    ``vocab_size``) masked to -1e30, the gold logit by ``gather``.
+    ``vocab_size``) masked to -1e30, the gold logit by ``gather``. With
+    ``remat`` while autograd records, each chunk's logits are recomputed
+    in the backward pass (``torch.utils.checkpoint``), so that one
+    chunk's, not every chunk's, are kept; values are unchanged.
     x: (B, S, d); labels: (B, S) ints below ``vocab_size``."""
     B, S, d = x.shape
     Vp = w_unembed.shape[1]
@@ -363,16 +368,27 @@ def chunked_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     vmask = torch.arange(Vp, device=dev) < vocab_size
     valid = (torch.arange(S + pad, device=dev) < S).to(torch.float32)
     w = w_unembed.to(torch.float32)
-    tot = torch.zeros((), dtype=torch.float32, device=dev)
-    for c0 in range(0, S + pad, chunk):
-        logits = x[:, c0:c0 + chunk].to(torch.float32) @ w   # (B, c, Vp)
+
+    def part(xc, w, lc, vc):
+        logits = xc.to(torch.float32) @ w                    # (B, c, Vp)
         logits = torch.where(vmask, logits, -1e30)
         if SH.is_dtensor(logits):
-            lse, gold = RG.xent(logits, labels[:, c0:c0 + chunk])
+            lse, gold = RG.xent(logits, lc)
         else:
+            # gold first, as ``regions.xent``: the backward runs the later
+            # op's first, so logsumexp's (B, c, Vp) temporaries are freed
+            # before the gather's (B, c, Vp) gradient is made
+            gold = logits.gather(-1, lc[..., None])[..., 0]
             lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels[:, c0:c0 + chunk, None])[..., 0]
-        tot = tot + ((lse - gold) * valid[c0:c0 + chunk]).sum()
+        return ((lse - gold) * vc).sum()
+
+    if remat and torch.is_grad_enabled():
+        part = functools.partial(checkpoint, RG.preserve(part),
+                                 use_reentrant=False)
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, S + pad, chunk):
+        tot = tot + part(x[:, c0:c0 + chunk], w, labels[:, c0:c0 + chunk],
+                         valid[c0:c0 + chunk])
     return tot / (B * S)
 
 
@@ -398,13 +414,14 @@ def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
     (B, S_dec)} -> (mean next-token cross entropy, plus 0.01 * lb_loss
     under MoE; aux). aux holds the reference's MoE terms (``_backbone``),
     zero for an MLP model; audio's is {"lb_loss": 0}, as the
-    reference's."""
+    reference's. Under ``cfg.remat`` the cross entropy's chunks are
+    recomputed in the backward pass too (``chunked_xent``)."""
     require_lm(cfg)
     if cfg.family == "audio":
         enc = _encoder(params, cfg, batch["frames"])
         h = _decoder_encdec(params, cfg, batch["tokens"], enc)
         loss = chunked_xent(h, _unembed_w(params, cfg), batch["labels"],
-                            cfg.vocab_size)
+                            cfg.vocab_size, remat=cfg.remat)
         return loss, {"lb_loss": torch.zeros((), dtype=torch.float32,
                                              device=h.device)}
     x = constraint(_embed_in(params, cfg, batch), ("batch", "seq", "embed"))
@@ -412,7 +429,7 @@ def loss_fn(params, cfg, batch) -> tuple[torch.Tensor, dict]:
                        torch.arange(x.shape[1], device=x.device))
     h = L.apply_norm(params["norm_f"], cfg, h)
     loss = chunked_xent(h, _unembed_w(params, cfg), batch["labels"],
-                        cfg.vocab_size)
+                        cfg.vocab_size, remat=cfg.remat)
     if cfg.is_moe:
         loss = loss + 0.01 * aux["lb_loss"]
     return loss, aux

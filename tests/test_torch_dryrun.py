@@ -14,7 +14,9 @@ is the reference's formula over the H100 constants. deepseek-v2-236b's
 MLA decode traces on a mesh whose pod and data axes make its context a
 partial sum. The training step's memory a device grows from 1 to 2
 full-width layers by no more than the reference's growth (its compiled
-step's memory analysis, in a subprocess) plus a stated slack.
+step's memory analysis, in one subprocess for the module) plus a stated
+slack, and where the heads do not divide the model axis it stays within
+a stated ratio of the reference's.
 
 Each test leaves no process group behind (``fake_group`` destroys it):
 the fake group is process-wide state in an xdist worker.
@@ -180,14 +182,19 @@ def test_mla_decode_on_a_pod_mesh():
     assert not dist.is_initialized()
 
 
-# The training step's memory a device against the reference's, the
-# smallest full-width config whose growth a layer showed the fault: each
+# The training step's memory a device against the reference's. Fault 10,
+# the smallest full-width config whose growth a layer showed it: each
 # microbatch's float32 gradient sum was made at the parameters' global
 # shape on every device (0.43 GiB a layer here, 5.2 for qwen1.5-110b).
 GROWTH_ARCH, GROWTH_SHAPE = "internlm2-1.8b", "train_4k"
 GROWTH_SLACK_MIB = 560
+# Fault 13, the smallest full-width config whose heads the 16-wide model
+# axis does not divide (8): there the attention runs whole on every model
+# shard, and the flash attention kept each KV chunk's float32 scores and
+# weights for its backward (9.0070 GiB a device at one layer).
+HEADS_ARCH, HEADS_RATIO = "gemma-2b", 1.5
 
-_REF_GROWTH = """
+_REF_MEMORY = """
 import json, os, sys
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=256 "
                            + os.environ.get("XLA_FLAGS", ""))
@@ -195,49 +202,87 @@ from repro.configs import INPUT_SHAPES, get_config
 from repro.launch.mesh import make_production_mesh
 from repro.launch.steps import lower_combo
 mesh = make_production_mesh(multi_pod=False)
-out = []
-for n in (1, 2):
-    cfg = get_config(sys.argv[1]).replace(n_layers=n)
-    ma = lower_combo(cfg, INPUT_SHAPES[sys.argv[2]], mesh)[0].compile(
-        ).memory_analysis()
-    out.append(ma.argument_size_in_bytes + ma.temp_size_in_bytes
-               + ma.output_size_in_bytes - ma.alias_size_in_bytes)
+out = {}
+for arg in sys.argv[2:]:
+    arch, layers = arg.split(":")
+    for n in map(int, layers.split(",")):
+        cfg = get_config(arch).replace(n_layers=n)
+        ma = lower_combo(cfg, INPUT_SHAPES[sys.argv[1]], mesh)[0].compile(
+            ).memory_analysis()
+        out.setdefault(arch, []).append(
+            ma.argument_size_in_bytes + ma.temp_size_in_bytes
+            + ma.output_size_in_bytes - ma.alias_size_in_bytes)
 print(json.dumps(out))
 """
 
 
-def test_training_memory_grows_as_the_reference():
+class _Reference:
+    """The reference's memory a device (XLA's memory analysis of its
+    compiled step, on 256 forced host devices, as ``repro.launch.dryrun``
+    compiles it) of each arch at the layer counts asked, in one
+    subprocess that runs beside the port's traces."""
+
+    def __init__(self, shape, wanted):
+        src = os.path.join(os.path.dirname(__file__), "..", "src")
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (src, os.environ.get("PYTHONPATH")) if p))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _REF_MEMORY, shape, *wanted], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self._out = None
+
+    def get(self) -> dict:
+        if self._out is None:
+            out, err = self.proc.communicate(timeout=600)
+            assert self.proc.returncode == 0, err[-3000:]
+            self._out = json.loads(out.strip().splitlines()[-1])
+        return self._out
+
+
+@pytest.fixture(scope="module")
+def reference_memory():
+    ref = _Reference(GROWTH_SHAPE, [f"{GROWTH_ARCH}:1,2", f"{HEADS_ARCH}:1"])
+    yield ref
+    if ref.proc.poll() is None:
+        ref.proc.kill()
+        ref.proc.communicate()
+
+
+def _port_memory(arch, layers):
+    """The dry run's memory a device of ``arch`` at full width cut to
+    ``layers`` layers x ``GROWTH_SHAPE`` x 16x16."""
+    cfg = get_config(arch).replace(n_layers=layers)
+    with D.fake_group(256):
+        mesh = M.make_production_mesh(multi_pod=False)
+        lowered, _ = lower_combo(cfg, INPUT_SHAPES[GROWTH_SHAPE], mesh)
+        return D.trace(lowered)["memory"]["per_device_total"]
+
+
+def test_training_memory_grows_as_the_reference(reference_memory):
     """internlm2-1.8b at full width x train_4k x 16x16: the dry run's
     memory a device grows from 1 to 2 layers by at most the reference's
-    growth (XLA's memory analysis of its compiled step, on 256 forced host
-    devices in a subprocess, as ``repro.launch.dryrun`` compiles it) plus
-    ``GROWTH_SLACK_MIB``. The reference's 1-layer step holds more than its
-    2-layer one (2.7547 and 2.5273 GiB); the port's 1.8745 and 2.0737
-    GiB, 2.81 and 3.24 before the gradient sum took its parameter's
-    placements."""
-    src = os.path.join(os.path.dirname(__file__), "..", "src")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    ref = subprocess.Popen([sys.executable, "-c", _REF_GROWTH, GROWTH_ARCH,
-                            GROWTH_SHAPE], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True)
-    try:
-        port = []
-        for n in (1, 2):
-            cfg = get_config(GROWTH_ARCH).replace(n_layers=n)
-            with D.fake_group(256):
-                mesh = M.make_production_mesh(multi_pod=False)
-                lowered, _ = lower_combo(cfg, INPUT_SHAPES[GROWTH_SHAPE],
-                                         mesh)
-                port.append(D.trace(lowered)["memory"]["per_device_total"])
-        out, err = ref.communicate(timeout=600)
-    finally:
-        if ref.poll() is None:
-            ref.kill()
-    assert ref.returncode == 0, err[-3000:]
-    want = json.loads(out.strip().splitlines()[-1])
+    growth plus ``GROWTH_SLACK_MIB``. The reference's 1-layer step holds
+    more than its 2-layer one (2.7547 and 2.5273 GiB); the port's 1.1123
+    and 1.3104 GiB (1.8745 and 2.0737 while the flash attention kept its
+    chunks' scores and the cross entropy its chunks' logits, 2.81 and 3.24
+    before the gradient sum took its parameter's placements)."""
+    port = [_port_memory(GROWTH_ARCH, n) for n in (1, 2)]
+    want = reference_memory.get()[GROWTH_ARCH]
     grow, ref_grow = port[1] - port[0], want[1] - want[0]
     assert grow <= ref_grow + GROWTH_SLACK_MIB * 2 ** 20, (port, want)
+    assert not dist.is_initialized()
+
+
+def test_training_memory_where_heads_do_not_divide_the_model_axis(
+        reference_memory):
+    """gemma-2b (8 heads) at one full-width layer x train_4k x 16x16: the
+    dry run's memory a device at most ``HEADS_RATIO`` times the
+    reference's (3.8932 GiB). The port's 1.5133 GiB, 9.0070 while the
+    flash attention kept each KV chunk's float32 scores and weights."""
+    port = _port_memory(HEADS_ARCH, 1)
+    want = reference_memory.get()[HEADS_ARCH][0]
+    assert port <= HEADS_RATIO * want, (port, want)
     assert not dist.is_initialized()
 
 

@@ -138,6 +138,39 @@ def test_chunked_xent_matches(dtype, S_, chunk):
         _assert_grad_close(a, b, tol)
 
 
+def test_chunked_xent_remat_keeps_no_chunk_logits():
+    """With ``remat`` each chunk's logits are recomputed in the backward:
+    the loss and the gradients of x and w are bitwise those without it,
+    and autograd keeps none of the chunks' float32 (B, c, Vp) logits
+    (only the checkpoints' inputs), where without it it keeps each
+    chunk's."""
+    rng = np.random.default_rng(2)
+    B, S, d, Vp, chunk = 2, 64, 32, 1024, 16
+    x = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d, Vp)) * 0.1).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, (B, S)))
+    out = {}
+    for remat in (False, True):
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        saved = []
+
+        def pack(t):
+            saved.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = TT.chunked_xent(tx, tw, labels, 1000, chunk=chunk,
+                                   remat=remat)
+        loss.backward()
+        out[remat] = (loss.detach(), tx.grad, tw.grad, saved)
+    for a, b in zip(out[False][:3], out[True][:3]):
+        assert torch.equal(a, b)
+    logits = (B, chunk, Vp)
+    assert out[False][3].count(logits) >= S // chunk
+    assert logits not in out[True][3]
+
+
 def test_loss_fn_matches(reference):
     """``loss_fn``'s value and its gradient by autograd against
     ``jax.value_and_grad``, every leaf in ``tree_leaves`` order."""
