@@ -238,7 +238,9 @@ the last line:
    largest slice (``mlp.w1``'s (24, 2,048, 512)) beside the bound and
    ``torch.topk``; one dry-run combination (internlm2-1.8b x train_4k x
    16x16, ``--sync rage_k``) under this machine's torch, in a
-   subprocess on the CPU that runs beside the card's phases; one
+   subprocess on the CPU that runs beside the card's phases, after the
+   CLI's check that a shard-dim reshard is booked as all-to-all under
+   this torch (its all-to-all bytes printed); one
    autotune sweep at internlm2's decode shapes and at ``mlp.w1``'s
    slice into a temporary registry (``build/dryrun_smoke/AUTOTUNE.json``),
    each winner held to its plain twin;
@@ -5031,6 +5033,12 @@ def finish_dryrun(proc, log, t_start, scratch: str) -> dict:
                         "internlm2-1.8b_train_4k_16x16.json")
     rec = json.load(open(path))
     t = rec["roofline"]
+    check = [ln for ln in text.splitlines()
+             if ln.startswith("reshard check:")]
+    if not check:
+        raise AssertionError(f"dryrun: no reshard check: {text[-3000:]}")
+    say(f"dryrun: {check[0]}; the combination's all-to-all "
+        f"{rec['collective_bytes_per_dev']['all-to-all']:.6e} B a device")
     say(f"dryrun: internlm2-1.8b x train_4k x 16x16 --sync rage_k under "
         f"torch {torch.__version__} on the CPU: ok in "
         f"{time.perf_counter() - t_start:.1f} s of wall beside the card "

@@ -402,9 +402,11 @@ def microbatches(v, accum: int):
 def embed(w, ids):
     """w[ids] for a (V, d) table and integer ids, on local shards: each
     vocabulary shard looks up the ids it holds (0 elsewhere), a partial
-    sum over those mesh dims; the ids keep their batch shards. (DTensor's
-    own rule goes through an ``index_put`` backward that some torch
-    versions cannot place.)"""
+    sum over those mesh dims; the ids keep their batch shards; where the
+    ids are whole on a mesh dim that splits d, each shard looks up its
+    columns and the rows, not the table, are gathered. (DTensor's own
+    rule goes through an ``index_put`` backward that some torch versions
+    cannot place.)"""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     dm = w.device_mesh
@@ -417,6 +419,9 @@ def embed(w, ids):
             v_dims.append(md)
         elif isinstance(ip, Shard):
             w_in.append(Replicate()), id_in.append(ip), out.append(ip)
+        elif isinstance(wp, Shard):
+            w_in.append(wp), id_in.append(Replicate())
+            out.append(Shard(ids.ndim))
         else:
             w_in.append(Replicate()), id_in.append(Replicate())
             out.append(Replicate())
@@ -435,10 +440,11 @@ def embed(w, ids):
 
     rows = _local(local, (tuple(w_in), tuple(id_in)), tuple(out), dm, w,
                   ids)
-    # the partial sum reduced here, where the reference's gather reduces
-    # its masked partial, not carried into the residual stream
-    return rows.redistribute(dm, tuple(Replicate() if isinstance(
-        p, Partial) else p for p in rows.placements))
+    # the partial sum reduced, and the columns gathered, here, where the
+    # reference's gather does both, not carried into the residual stream
+    return rows.redistribute(dm, tuple(
+        Replicate() if isinstance(p, Partial) or p == Shard(ids.ndim)
+        else p for p in rows.placements))
 
 
 def pad(x, pads):

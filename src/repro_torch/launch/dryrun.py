@@ -25,11 +25,15 @@ It reads, per device:
   nothing is fused;
 * collective bytes: the output bytes of each collective that reaches the
   fake group (DTensor's functional collectives and the manual sync's
-  ``dist.all_gather``), by the reference's five kinds;
+  ``dist.all_gather``), by the reference's five kinds; a shard-dim
+  reshard is an all-to-all of the local shard, as on the H100 mesh
+  (:func:`alltoall_reshards`);
 * memory: the local bytes of the arguments and of the outputs, and the
   peak of ``torch.distributed._tools.mem_tracker.MemTracker`` over the
   local ops (:func:`_tracker_class`); "temp" is the peak less the
-  arguments.
+  arguments; and the tensors live at the peak, each with the op and the
+  model line that made it (noting them costs less than a trace's spread
+  from run to run).
 
 The cost totals come from 1- and 2-unit probes extrapolated to the full
 depth, as the reference's (:func:`probe_roofline`); the memory from the
@@ -155,6 +159,22 @@ def _counter_class():
     return _Counter
 
 
+_SRC = os.path.join(os.path.dirname(__file__), "..", "..")
+
+
+def _model_line() -> str:
+    """file:line of the innermost frame in the port's model code; "?"
+    where none is on the stack (the backward, which autograd's engine
+    runs)."""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if "repro_torch" in fn and "models" in fn:
+            return f"{os.path.relpath(fn, _SRC)}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
 def _tracker_class():
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor import DTensor
@@ -163,16 +183,122 @@ def _tracker_class():
         """``MemTracker`` over the local shards alone: DTensor ops are handed
         on, and the global-shape temporaries of DTensor's sharding
         propagation are not tracked (above DTensor it counts a view of a
-        sharded tensor at its global size)."""
+        sharded tensor at its global size). It also notes each storage's
+        first and last op, with the op, the model line, the shape and the
+        dtype that made it, for :meth:`live_at_peak`."""
+
+        def __init__(self):
+            super().__init__()
+            self._rows = []
+            self._op = 0
+            self._peak = (-1, "", 0)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
             if _in_propagation():
                 return func(*args, **(kwargs or {}))
-            return super().__torch_dispatch__(func, types, args, kwargs)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            self._note(func._overloadpacket.__name__, out)
+            return out
+
+        def _note(self, name, out):
+            self._op += 1
+            at = None
+            for t in _tree.leaves(out):
+                if not isinstance(t, torch.Tensor):
+                    continue
+                winfo = self._WINFO.get(t.untyped_storage(), (None,))[0]
+                if winfo is not None and not hasattr(winfo, "row"):
+                    at = at or _model_line()
+                    winfo.row = [winfo.mem_consumed, name, at,
+                                 tuple(t.shape), str(t.dtype), self._op, None]
+                    self._rows.append(winfo.row)
+            total = sum(v["Total"] for v in self._curr_mem_snap.values())
+            if total > self._peak[0]:
+                self._peak = (total, f"{name} at {at or _model_line()}",
+                              self._op)
+
+        def _delete_callback(self, winfo, w_st):
+            row = getattr(winfo, "row", None)
+            if row is not None:
+                row[-1] = self._op
+            super()._delete_callback(winfo, w_st)
+
+        def live_at_peak(self, top: int = 12) -> dict:
+            """The peak's bytes, the op that reached it, and the ``top``
+            largest storages that the step made and that were live there,
+            as [bytes, op, model line, shape, dtype] (the arguments, which
+            the record counts apart, are not among them)."""
+            total, op, at = self._peak
+            live = sorted((r for r in self._rows if r[5] <= at
+                           and (r[6] is None or r[6] >= at)),
+                          key=lambda r: -r[0])
+            return {"bytes": total, "op": op,
+                    "live": [r[:5] for r in live[:top]]}
 
     return _LocalMemTracker
+
+
+@contextmanager
+def alltoall_reshards():
+    """For the extent, DTensor's shard-dim reshards (``Shard(i)`` to
+    ``Shard(j)`` on one mesh dim) run as the H100 mesh runs them: the
+    ``_dtensor.shard_dim_alltoall`` op of the local shard over the mesh
+    dim's group, which the counter books as all-to-all. On a mesh whose
+    device type is ``cpu`` (the fake group's) DTensor would all-gather
+    the full width and chunk it, which gloo needs but NCCL does not.
+    Raises where this torch lacks the names it replaces; never falls
+    back to the gather."""
+    from torch.distributed.tensor import _collective_utils as CU
+    from torch.distributed.tensor import placement_types as PT
+
+    if not (hasattr(PT, "shard_dim_alltoall")
+            and hasattr(CU, "shard_dim_alltoall")
+            and hasattr(torch.ops._dtensor, "shard_dim_alltoall")):
+        raise RuntimeError(
+            f"dryrun: torch {torch.__version__} has no DTensor "
+            "shard_dim_alltoall to route shard-dim reshards through")
+
+    def alltoall(local, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            local, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    saved = PT.shard_dim_alltoall, CU.shard_dim_alltoall
+    PT.shard_dim_alltoall = CU.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        PT.shard_dim_alltoall, CU.shard_dim_alltoall = saved
+
+
+def reshard_check() -> dict:
+    """:func:`trace` of one shard-dim reshard, ``Shard(1)`` to ``Shard(2)``
+    on the model axis of a fake (2, 4) mesh; raises unless this torch's
+    DTensor books it as the all-to-all of the local shard, with no
+    all-gather and nothing larger than the local shard live at the peak.
+    Its record."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.steps import Lowered
+
+    with fake_group(8):
+        mesh = SH.from_device_mesh(init_device_mesh(
+            "cpu", (2, 4), mesh_dim_names=("data", "model")))
+        dm = mesh.device_mesh
+        x = torch.empty((4, 64, 32, 8), dtype=torch.bfloat16, device="meta")
+        rec = trace(Lowered(
+            lambda t: t.redistribute(dm, [Shard(0), Shard(2)]), (x,),
+            (SH.placements(mesh, SH.P("data", "model")),), mesh, "reshard"))
+    local = x.numel() * x.element_size() // 8
+    live = rec["memory"]["peak"]["live"]
+    if (rec["coll"]["all-to-all"] != local or rec["coll"]["all-gather"]
+            or max(row[0] for row in live) != local):
+        raise RuntimeError(f"dryrun: torch {torch.__version__} did not "
+                           f"book a shard-dim reshard as all-to-all: {rec}")
+    return rec
 
 
 @contextmanager
@@ -230,7 +356,8 @@ def _local_bytes(x) -> int:
 def trace(lowered, *, memory: bool = True) -> dict:
     """Run ``lowered`` (``launch.steps.Lowered``) once on fake DTensors:
     {"flops", "bytes", "coll" {kind: bytes}} per device, and with
-    ``memory`` the memory record."""
+    ``memory`` the memory record, whose "peak" entry lists what is live
+    at the tracker's peak."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -244,25 +371,27 @@ def trace(lowered, *, memory: bool = True) -> dict:
             tracker.track_external(*[t for t in _tree.leaves(args)
                                      if isinstance(t, torch.Tensor)])
         with counter, (tracker if tracker is not None else _no_modes()), \
-                implicit_replication(), RG.matmul_mode():
+                implicit_replication(), RG.matmul_mode(), \
+                alltoall_reshards():
             out = lowered.fn(*args)
         rec = {"flops": float(counter.flops), "bytes": float(counter.bytes),
                "coll": {k: float(v) for k, v in counter.coll.items()}}
         if tracker is not None:
             out_bytes = _local_bytes(out)
             alias = sum(_local_bytes(args[i]) for i in lowered.donate)
-            peak = max(tracker.get_tracker_snapshot("peak").get(
+            top = max(tracker.get_tracker_snapshot("peak").get(
                 dev, {}).get("Total", 0) for dev in
                 tracker.get_tracker_snapshot("peak")) if \
                 tracker.get_tracker_snapshot("peak") else 0
-            temp = max(0, peak - arg_bytes)
+            temp = max(0, top - arg_bytes)
             rec["memory"] = {
                 "argument_bytes": arg_bytes,
                 "output_bytes": out_bytes,
                 "temp_bytes": temp,
                 "alias_bytes": alias,
-                "peak_bytes": peak,
+                "peak_bytes": top,
                 "per_device_total": arg_bytes + temp + out_bytes - alias,
+                "peak": tracker.live_at_peak(),
             }
     return rec
 
@@ -364,6 +493,11 @@ def _run(rec, cfg, shape, multi_pod, verbose):
                   f"{terms['collective_s']:.2e})s "
                   f"mem/dev={rec['memory']['per_device_total']/2**30:.2f}GiB",
                   flush=True)
+            pk = rec["memory"]["peak"]
+            print(f"  peak {pk['bytes']:,} B after {pk['op']}; live:")
+            for row in pk["live"]:
+                print(f"    {row[0]:>14,} B {row[1]} at {row[2]} "
+                      f"{tuple(row[3])} {row[4]}")
     except Exception as e:  # noqa: BLE001 - record failures, keep sweeping
         rec["status"] = "fail"
         rec["error"] = f"{type(e).__name__}: {e}"[:2000]
@@ -429,7 +563,8 @@ def table(out_dir: str, ref_dir: str | None = None) -> str:
     device in GiB, or why the combination failed or was skipped (the
     table of PERF.md). With ``ref_dir`` (the records of ``python -m
     repro.launch.dryrun --out DIR``) the reference's memory a device
-    stands beside the port's."""
+    stands beside the port's, and a second table gives both sides'
+    collective bytes a device by kind."""
     recs = _records(out_dir)
     refs = _records(ref_dir) if ref_dir else {}
 
@@ -450,14 +585,37 @@ def table(out_dir: str, ref_dir: str | None = None) -> str:
                 f"{t['memory_s']:.3g} / {t['collective_s']:.3g}, "
                 f"{r['memory']['per_device_total'] / 2**30:.1f}{beside}")
 
-    rows = ["| Arch | " + " | ".join(INPUT_SHAPES) + " |",
-            "|---" * (len(INPUT_SHAPES) + 1) + "|"]
-    for arch in ASSIGNED_ARCHS:
-        rows.append(f"| {arch} | " + " | ".join(
-            "; ".join(cell(recs.get((arch, shape, m)))
-                      for m in ("16x16", "2x16x16"))
-            for shape in INPUT_SHAPES) + " |")
+    def coll(r):
+        if r is None or r["status"] != "ok":
+            return cell(r)
+        ref = refs.get((r["arch"], r["shape"], r["mesh"]))
+        out = []
+        for kind in KINDS:
+            v = f"{r['collective_bytes_per_dev'][kind] / 1e9:.3g}"
+            if ref and ref["status"] == "ok":
+                v += f"/{ref['collective_bytes_per_dev'][kind] / 1e9:.3g}"
+            out.append(f"{_ABBR[kind]} {v}")
+        return " ".join(out)
+
+    def grid(fn):
+        rows = ["| Arch | " + " | ".join(INPUT_SHAPES) + " |",
+                "|---" * (len(INPUT_SHAPES) + 1) + "|"]
+        for arch in ASSIGNED_ARCHS:
+            rows.append(f"| {arch} | " + " | ".join(
+                "; ".join(fn(recs.get((arch, shape, m)))
+                          for m in ("16x16", "2x16x16"))
+                for shape in INPUT_SHAPES) + " |")
+        return rows
+
+    rows = grid(cell)
+    if ref_dir:
+        rows += ["", "Collective GB a device by kind, the port's / the "
+                 "reference's (16x16; 2x16x16):", ""] + grid(coll)
     return "\n".join(rows)
+
+
+_ABBR = {"all-reduce": "ar", "all-gather": "ag", "reduce-scatter": "rs",
+         "all-to-all": "a2a", "collective-permute": "cp"}
 
 
 def main(argv=None):
@@ -480,12 +638,17 @@ def main(argv=None):
                     help="print the records under --out as a table")
     ap.add_argument("--ref", default=None,
                     help="with --table: the reference's records, whose "
-                         "memory a device stands beside the port's")
+                         "memory a device and collectives by kind stand "
+                         "beside the port's")
     args = ap.parse_args(argv)
     if args.table:
         print(table(args.out, args.ref))
         return 0
 
+    rec = reshard_check()
+    print(f"reshard check: a shard-dim reshard of {rec['coll']['all-to-all']:.0f}"
+          f" B booked as all-to-all under torch {torch.__version__}",
+          flush=True)
     archs = ASSIGNED_ARCHS if args.all or args.arch == "all" else [args.arch]
     shapes = (list(INPUT_SHAPES) if args.all or args.shape == "all"
               else [args.shape])

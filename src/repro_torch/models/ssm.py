@@ -58,12 +58,13 @@ def ssm_params(gen: torch.Generator, cfg, lead: tuple = ()) -> dict:
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """x: (..., l) -> the lower-triangular pairwise sums (..., l, l):
     cs[i] - cs[j] for j <= i, -inf above the diagonal (masked before any
-    exp, so that no inf * 0 reaches the backward)."""
+    exp, so that no inf * 0 reaches the backward). One (..., l, l)
+    tensor: the mask is written in place."""
     l = x.shape[-1]
     cs = torch.cumsum(x, dim=-1)
     seg = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-    return torch.where(mask, seg, -math.inf)
+    upper = torch.ones((l, l), dtype=torch.bool, device=x.device).triu_(1)
+    return seg.masked_fill_(upper, -math.inf)
 
 
 def _f32(*xs):
@@ -96,11 +97,16 @@ def ssd_chunked(x, dtA, B, C, chunk: int, init_state=None):
     Cc = C.reshape(b, nc, chunk, n)
 
     A_cum = torch.cumsum(Ac, dim=-1)                         # (b,h,c,l)
-    Lmat = torch.exp(_segsum(Ac))                            # (b,h,c,l,l)
+    # (b,h,c,l,l): the exp in place, rounded to the model dtype as the
+    # reference rounds it, then its float32 operand (exact); each step
+    # replaces the one before, which only autograd may keep
+    Lmat = _segsum(Ac).exp_().to(dt)
+    Lmat = Lmat.to(_F32)
 
     # intra-chunk (dual, attention-like) term
     y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp",
-                          *_f32(Cc, Bc, Lmat.to(dt), xc)).to(dt)
+                          *_f32(Cc, Bc, Lmat, xc)).to(dt)
+    del Lmat
 
     # per-chunk final states, float32
     decay_states = torch.exp(A_cum[..., -1:] - A_cum)        # (b,h,c,l)
@@ -132,7 +138,8 @@ def _causal_conv(xBC, w, bias, state=None):
     """Depthwise causal conv of width K = w.shape[0], the sum over the K
     shifts in order. xBC: (b, L, ch); w: (K, ch); state: (b, K-1, ch) left
     context (decode) or None (zeros). Returns (out, the new (b, K-1, ch)
-    state: the last K-1 rows of the context and xBC)."""
+    state: a copy of the last K-1 rows of the context and xBC, not a view
+    that keeps them all alive)."""
     K = w.shape[0]
     if state is None:
         state = xBC.new_zeros((xBC.shape[0], K - 1, xBC.shape[-1]))
@@ -141,7 +148,7 @@ def _causal_conv(xBC, w, bias, state=None):
     out = xp[:, 0:Ln] * w[0]
     for i in range(1, K):
         out = out + xp[:, i:i + Ln] * w[i]
-    return out + bias, xp[:, -(K - 1):]
+    return out + bias, xp[:, -(K - 1):].clone()
 
 
 def _gated_norm(p, y, z, dtype):
@@ -154,13 +161,31 @@ def _gated_norm(p, y, z, dtype):
 
 def _split_in(p, cfg, x, conv_state):
     """in_proj, the conv and its activation -> (z, xs, B, C, dt raw, the
-    new conv state)."""
+    new conv state). One conv over all channels, but on a mesh over a
+    sequence: there the conv, being depthwise, takes x's, B's and C's
+    channels apart, with the same values, x's split over the model axis
+    by heads as the scan takes them and B's and C's whole, so that no
+    device holds its full width. (Three convs would add a third to a
+    decode step's launches on one card, and gather more in a mesh's
+    decode step: PERF.md.)"""
     di, ns = cfg.d_inner, cfg.ssm_state
     z, xBC, dt = torch.split(x @ p["in_proj"],
                              [di, di + 2 * ns, cfg.ssm_nheads], dim=-1)
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
-    xs, B, C = torch.split(F.silu(xBC), [di, ns, ns], dim=-1)
-    return z, xs, B, C, dt, new_conv
+    if not (is_dtensor(x) and x.shape[1] > 1):
+        xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                     conv_state)
+        xs, B, C = torch.split(F.silu(xBC), [di, ns, ns], dim=-1)
+        return z, xs, B, C, dt, new_conv
+    outs, tails = [], []
+    for lo, hi, axis in ((0, di, "model"), (di, di + ns, None),
+                         (di + ns, di + 2 * ns, None)):
+        out, tail = _causal_conv(
+            constraint(xBC[..., lo:hi], ("batch", None, axis)),
+            p["conv_w"][:, lo:hi], p["conv_b"][lo:hi],
+            None if conv_state is None else conv_state[..., lo:hi])
+        outs.append(F.silu(out))
+        tails.append(tail)
+    return (z, *outs, dt, torch.cat(tails, dim=-1))
 
 
 def apply_ssm(p: dict, cfg, x: torch.Tensor, *, conv_state=None,

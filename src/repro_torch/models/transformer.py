@@ -454,7 +454,9 @@ def prefill(params, cfg, inputs) -> torch.Tensor:
         h, _ = _backbone(params, cfg, x,
                          torch.arange(x.shape[1], device=x.device))
         h = L.apply_norm(params["norm_f"], cfg, h)
-    return _logits(params, cfg, h[:, -1])
+    # on a mesh the logits stay split over the vocabulary, as the
+    # reference's are
+    return constraint(_logits(params, cfg, h[:, -1]), ("batch", "vocab"))
 
 
 # ---------------------------------------------------------------------------

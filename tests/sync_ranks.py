@@ -8,7 +8,8 @@ passing its local slices, or the reference on four forced host devices
 (the ``torch4`` and ``jax4`` modes, :func:`start4`, :func:`collect4`,
 :func:`check_four_ranks_match_reference`). The ``torch4`` ranks also
 run ``regions.merge_heads`` on that mesh (:func:`run_merge_heads`,
-:func:`check_merge_heads`).
+:func:`check_merge_heads`), and ``regions.embed`` (:func:`run_embed`,
+:func:`check_embed`).
 
   python tests/sync_ranks.py torch IN.npz OUT_DIR
   python tests/sync_ranks.py jax IN.npz OUT_DIR
@@ -461,6 +462,8 @@ def run_torch4_rank(rank, path_in, out_dir, init_file):
                       {n: (v if isinstance(v, int) else v.numpy())
                        for n, v in stats.items()})
     run_merge_heads(out)
+    run_embed(out)
+    run_split_in(out)
     out["coords"] = np.asarray([mesh.rank, mesh.model_rank])
     np.savez(os.path.join(out_dir, f"torch4_rank{rank}.npz"), **out)
     dist.destroy_process_group()
@@ -514,6 +517,106 @@ def check_merge_heads(runs):
                 got[f"merge_heads/{case}"], got["merge_heads/plain"],
                 rtol=MERGE_TOL, atol=MERGE_TOL,
                 err_msg=f"{case} rank {got['coords']}")
+
+
+# regions.embed's cases: the ids' (B, S) placement on the data axis, whole
+# (a batch that data does not split, as long_500k's 1) or batch-sharded;
+# the (V, d) table split as the parameter rules split it, d over data
+# and the vocabulary over model
+EMBED_CASES = ("whole", "batch")
+EMBED_SHAPE = (4, 3, 16, 10)      # B, S, V, d
+
+
+def run_embed(out):
+    """Each case's ``regions.embed(w, ids)`` gathered whole on a real (data
+    2, model 2) mesh, beside the plain ``w[ids]``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.dist import regions as RG
+
+    B, S, V, d = EMBED_SHAPE
+    g = torch.Generator().manual_seed(9)
+    w = torch.randn(V, d, generator=g)
+    ids = torch.randint(0, V, (B, S), generator=g)
+    out["embed/plain"] = w[ids].numpy()
+    dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    dr, mr = dm.get_coordinate()
+    wd = DTensor.from_local(w.chunk(2, dim=1)[dr].chunk(2, dim=0)[mr]
+                            .contiguous(), dm, [Shard(1), Shard(0)])
+    for case in EMBED_CASES:
+        if case == "batch":
+            idd = DTensor.from_local(ids.chunk(2)[dr].contiguous(), dm,
+                                     [Shard(0), Replicate()])
+        else:
+            idd = DTensor.from_local(ids, dm, [Replicate(), Replicate()])
+        out[f"embed/{case}"] = RG.embed(wd, idd).full_tensor().numpy()
+
+
+def check_embed(runs):
+    """Every rank's gathered ``regions.embed`` == ``w[ids]`` exactly (each
+    row is one shard's row plus the other vocabulary shard's zeros)."""
+    for got in runs["torch"]:
+        for case in EMBED_CASES:
+            np.testing.assert_array_equal(
+                got[f"embed/{case}"], got["embed/plain"],
+                err_msg=f"{case} rank {got['coords']}")
+
+
+# models.ssm._split_in on a mesh: mamba2-780m's smoke config, float32, x
+# (B, L, d) and the conv state whole on both mesh dims
+SPLIT_IN_SHAPE = (2, 40)          # B, L
+
+
+def run_split_in(out):
+    """``ssm._split_in`` on DTensors of a real (data 2, model 2) mesh (x's,
+    B's and C's channels through the depthwise conv apart, x's on model),
+    each output gathered whole, beside the plain path's one conv over all
+    channels; without and with a conv state. Also x's placement."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import ssm
+
+    cfg = get_smoke_config("mamba2-780m").replace(dtype="float32")
+    params = ssm.ssm_params(torch.Generator().manual_seed(4), cfg)
+    g = torch.Generator().manual_seed(6)
+    B, L = SPLIT_IN_SHAPE
+    x = torch.randn(B, L, cfg.d_model, generator=g)
+    state = torch.randn(B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state,
+                        generator=g)
+    dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def whole(t):
+        return DTensor.from_local(t, dm, [Replicate(), Replicate()])
+
+    pd = {k: whole(v) for k, v in params.items()}
+    with SH.use_mesh(SH.from_device_mesh(dm)):
+        for case, st in (("fresh", None), ("state", state)):
+            plain = ssm._split_in(params, cfg, x, st)
+            mesh = ssm._split_in(pd, cfg, whole(x),
+                                 None if st is None else whole(st))
+            for i, (a, b) in enumerate(zip(plain, mesh)):
+                out[f"split_in/{case}/{i}/plain"] = a.numpy()
+                out[f"split_in/{case}/{i}/mesh"] = b.full_tensor().numpy()
+            out[f"split_in/{case}/xs"] = np.asarray(str(mesh[1].placements))
+
+
+def check_split_in(runs):
+    """Every rank's gathered mesh outputs (z, xs, B, C, dt, the new conv
+    state) == the plain path's exactly, and xs split on data and on model
+    (its channels, by heads)."""
+    for got in runs["torch"]:
+        for case in ("fresh", "state"):
+            for i in range(6):
+                np.testing.assert_array_equal(
+                    got[f"split_in/{case}/{i}/mesh"],
+                    got[f"split_in/{case}/{i}/plain"],
+                    err_msg=f"{case} output {i} rank {got['coords']}")
+            assert str(got[f"split_in/{case}/xs"]) == \
+                "(Shard(dim=0), Shard(dim=2))", got[f"split_in/{case}/xs"]
 
 
 def run_jax4(path_in, out_dir):

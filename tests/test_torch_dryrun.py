@@ -16,7 +16,11 @@ partial sum. The training step's memory a device grows from 1 to 2
 full-width layers by no more than the reference's growth (its compiled
 step's memory analysis, in one subprocess for the module) plus a stated
 slack, and where the heads do not divide the model axis it stays within
-a stated ratio of the reference's.
+a stated ratio of the reference's. The prefill's logits take the
+reference's bytes a device (the same subprocess, the smoke config on a
+(2, 2) mesh of four of its devices); a shard-dim reshard is booked as the
+all-to-all NCCL runs; an embedding lookup whose ids are whole on data
+gathers rows, not the table.
 
 Each test leaves no process group behind (``fake_group`` destroys it):
 the fake group is process-wide state in an xdist worker.
@@ -193,18 +197,33 @@ GROWTH_SLACK_MIB = 560
 # shard, and the flash attention kept each KV chunk's float32 scores and
 # weights for its backward (9.0070 GiB a device at one layer).
 HEADS_ARCH, HEADS_RATIO = "gemma-2b", 1.5
+# The prefill's last-position logits: the reference's stay split over the
+# vocabulary on the model axis and over the batch on data; the port's came
+# out whole on every model shard.
+LOGITS_ARCH = "internlm2-1.8b"
 
 _REF_MEMORY = """
 import json, os, sys
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=256 "
                            + os.environ.get("XLA_FLAGS", ""))
-from repro.configs import INPUT_SHAPES, get_config
+import jax, numpy as np
+from repro.configs import INPUT_SHAPES, get_config, get_smoke_config
+from repro.configs.base import InputShape
 from repro.launch.mesh import make_production_mesh
 from repro.launch.steps import lower_combo
 mesh = make_production_mesh(multi_pod=False)
 out = {}
 for arg in sys.argv[2:]:
     arch, layers = arg.split(":")
+    if layers == "smoke_prefill":
+        small = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
+                                  ("data", "model"),
+                                  axis_types=mesh.axis_types[:2])
+        cfg = get_smoke_config(arch).replace(n_layers=1)
+        ma = lower_combo(cfg, InputShape("p", 32, 4, "prefill"), small)[
+            0].compile().memory_analysis()
+        out[arg] = ma.output_size_in_bytes
+        continue
     for n in map(int, layers.split(",")):
         cfg = get_config(arch).replace(n_layers=n)
         ma = lower_combo(cfg, INPUT_SHAPES[sys.argv[1]], mesh)[0].compile(
@@ -242,7 +261,8 @@ class _Reference:
 
 @pytest.fixture(scope="module")
 def reference_memory():
-    ref = _Reference(GROWTH_SHAPE, [f"{GROWTH_ARCH}:1,2", f"{HEADS_ARCH}:1"])
+    ref = _Reference(GROWTH_SHAPE, [f"{GROWTH_ARCH}:1,2", f"{HEADS_ARCH}:1",
+                                    f"{LOGITS_ARCH}:smoke_prefill"])
     yield ref
     if ref.proc.poll() is None:
         ref.proc.kill()
@@ -283,6 +303,51 @@ def test_training_memory_where_heads_do_not_divide_the_model_axis(
     port = _port_memory(HEADS_ARCH, 1)
     want = reference_memory.get()[HEADS_ARCH][0]
     assert port <= HEADS_RATIO * want, (port, want)
+    assert not dist.is_initialized()
+
+
+def test_prefill_logits_keep_the_reference_placement(reference_memory):
+    """The smoke config's prefill step on a fake (2, 2) mesh: its (B, Vp)
+    float32 logits' bytes a device equal the reference's output at the
+    same mesh (batch over data, vocabulary over model: 2,048 B; 4,096
+    while they were a partial sum over data whole on the batch)."""
+    cfg = get_smoke_config(LOGITS_ARCH).replace(n_layers=1)
+    rec = D.host_mesh_trace(cfg, SHAPES["prefill"], 2, 2, memory=True)
+    want = reference_memory.get()[f"{LOGITS_ARCH}:smoke_prefill"]
+    assert rec["memory"]["output_bytes"] == want
+    assert not dist.is_initialized()
+
+
+def test_embedding_of_a_whole_batch_gathers_rows_not_the_table():
+    """gemma-2b's smoke decode at batch 1 on a fake (2, 2) mesh: the ids
+    are whole on data, which splits the table's d, so each device looks
+    up its columns and the step gathers rows, below one vocabulary
+    shard of the table (256 x 128 bfloat16, 65,536 B): 1,888 B. On the
+    parent the table itself was gathered (67,168 B; the long_500k cells'
+    peak, 2.9-6.6x the reference's memory a device)."""
+    cfg = get_smoke_config("gemma-2b").replace(n_layers=1)
+    rec = D.host_mesh_trace(cfg, InputShape("d", 32, 1, "decode"), 2, 2)
+    assert rec["coll"]["all-gather"] < 256 * cfg.d_model * 2
+    assert not dist.is_initialized()
+
+
+def test_shard_dim_reshard_counts_as_all_to_all():
+    """A DTensor on a fake (2, 4) mesh moved from ``Shard(1)`` to
+    ``Shard(2)`` on the model axis inside ``trace`` (``reshard_check``,
+    which the CLI runs before a sweep): booked as an all-to-all of the
+    local shard, as NCCL runs it, with no all-gather, and no full-width
+    temporary live at the tracker's peak (on a ``cpu`` mesh DTensor
+    gathers the axis and chunks it: 65,536 B all-gathered and a peak of
+    147,456)."""
+    rec = D.reshard_check()
+    local = 2 * 16 * 32 * 8 * 2
+    assert rec["coll"]["all-to-all"] == local
+    assert rec["coll"]["all-gather"] == 0
+    assert rec["memory"]["output_bytes"] == local
+    assert rec["memory"]["peak_bytes"] < 4 * local
+    live = rec["memory"]["peak"]["live"]
+    assert max(row[0] for row in live) == local
+    assert "shard_dim_alltoall" in [row[1] for row in live]
     assert not dist.is_initialized()
 
 

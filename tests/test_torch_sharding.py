@@ -20,7 +20,10 @@ every rank's synced values and ages equal the slice of the reference's
 at its coordinates, and the stats equal, exactly (rage_k with threshold
 and sort candidates, a participation mask, cafe, dense). On the same
 ranks, ``regions.merge_heads`` (MLA's decode output projection) equals
-the plain product within float32 rounding. MoE's token
+the plain product within float32 rounding, ``regions.embed`` equals
+``w[ids]`` exactly, and ``models.ssm._split_in`` (the conv by channel
+group, x's channels on model) equals the plain path's one conv over all
+channels exactly. MoE's token
 blocks: ``apply_moe`` under a data-2 mesh at granite's smoke config with
 512 tokens (two blocks of 256, each with its own capacity) against the
 reference's under a mesh of the same shape, float32, within 1e-5 (y),
@@ -249,6 +252,22 @@ def test_merge_heads_on_four_ranks(four_runs):
     partial sum on data, equals the plain ``reshape @ wo`` within
     ``sync_ranks.MERGE_TOL``."""
     sync_ranks.check_merge_heads(four_runs)
+
+
+def test_embed_on_four_ranks(four_runs):
+    """``regions.embed`` on the four gloo ranks' (data 2, model 2) mesh,
+    the table's d on data and its vocabulary on model, the ids whole or
+    batch-sharded on data, equals ``w[ids]`` exactly."""
+    sync_ranks.check_embed(four_runs)
+
+
+def test_ssm_split_in_on_four_ranks(four_runs):
+    """``models.ssm._split_in`` on the four gloo ranks' (data 2, model 2)
+    mesh, where x's, B's and C's channels go through the conv apart and
+    x's split over model: every output and the new conv state, gathered,
+    equal the plain path's one conv over all channels exactly, with and
+    without a conv state."""
+    sync_ranks.check_split_in(four_runs)
 
 
 # -- MoE's token blocks under a data-2 mesh --------------------------------

@@ -12,6 +12,11 @@ them) and the arch's smoke config (d 128, 8 heads of 32, state 16):
   bfloat16 (x, B and C bfloat16, dtA float32) within 2e-2 of the
   reference's, one bfloat16 step of the value where the two round a
   float32 product to bfloat16 differently.
+- ``ssd_chunked`` bitwise a copy of the parent's scan kept here, outputs
+  and every input's gradient, in float32 and bfloat16, and without
+  autograd its peak one float32 (l, l) factor below the parent's;
+  ``_split_in`` on plain tensors bitwise the parent's one conv over all
+  channels, the new conv state now a copy, with one launch more.
 - ``_causal_conv`` with and without a state within 1e-6 in float32 (four
   products and adds in the reference's order; XLA may contract a
   multiply and an add into one rounding).
@@ -55,6 +60,7 @@ from repro.optim import optimizers as JO
 
 import lm_parity as P
 from test_ssm_math import naive_ssd
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import tree
 from repro_torch.configs import get_smoke_config
 from repro_torch.dist import sparse_sync as TS
@@ -319,3 +325,175 @@ def test_serve_and_train_cli_on_the_cpu(capsys):
     n = sum(p.numel() for p in tree.leaves(out["params"]))
     assert lines[0] == f"arch={ARCH} params={n:,} method=rage_k"
     assert len(lines) == 3 and all(map(math.isfinite, out["losses"]))
+
+
+# ---------------------------------------------------------------------------
+# the scan's memory: bitwise the parent's scan, fewer (l, l) temporaries
+# ---------------------------------------------------------------------------
+
+
+def _ssd_chunked_parent(x, dtA, B, C, chunk: int, init_state=None):
+    """``ssd_chunked`` as it was before its (l, l) temporaries were cut:
+    ``_segsum``'s difference, ``where`` and ``exp`` each a tensor, and the
+    float32 ``Lmat``, its model-dtype rounding and that rounding's float32
+    copy all live at the intra-chunk product."""
+    import torch.nn.functional as F
+
+    def segsum(a):
+        l = a.shape[-1]
+        cs = torch.cumsum(a, dim=-1)
+        seg = cs[..., :, None] - cs[..., None, :]
+        mask = torch.tril(torch.ones((l, l), dtype=torch.bool))
+        return torch.where(mask, seg, -math.inf)
+
+    def f32(*xs):
+        return [t.to(torch.float32) for t in xs]
+
+    b, L, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-L) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtA = F.pad(dtA, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (L + pad) // chunk
+    dt = x.dtype
+    xc = x.reshape(b, nc, chunk, h, p)
+    Ac = dtA.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+    A_cum = torch.cumsum(Ac, dim=-1)
+    Lmat = torch.exp(segsum(Ac))
+    y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp",
+                          *f32(Cc, Bc, Lmat.to(dt), xc)).to(dt)
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn",
+                          *f32(Bc, decay_states.to(dt), xc))
+    chunk_decay = torch.exp(A_cum[..., -1])
+    if init_state is None:
+        init_state = torch.zeros((b, h, p, n), dtype=torch.float32)
+    st, prev = init_state, []
+    for c in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, :, c, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)
+    state_decay = torch.exp(A_cum)
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp",
+                         *f32(Cc, prev_states.to(dt),
+                              state_decay.to(dt))).to(dt)
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, p)
+    return y[:, :L], st
+
+
+def _smoke_scan_inputs(dtype, L=100):
+    """The smoke config's scan shapes (8 heads of 32, state 16, chunk 32),
+    L padded to whole chunks, with an initial state; x, B and C in
+    ``dtype``, dtA and the state float32."""
+    cfg = get_smoke_config(ARCH)
+    h, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    x, dtA, B, C = _ssd_inputs(2, L, h, p, n, 11)
+    s0 = np.random.default_rng(12).standard_normal((2, h, p, n))
+    dt = getattr(torch, dtype)
+    return ([torch.from_numpy(x).to(dt), torch.from_numpy(dtA),
+             torch.from_numpy(B).to(dt), torch.from_numpy(C).to(dt),
+             torch.from_numpy(s0.astype(np.float32))], cfg.ssm_chunk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunked_is_bitwise_the_parent_scan(dtype):
+    """Outputs and the gradients of every input, bitwise the parent's."""
+    ins, chunk = _smoke_scan_inputs(dtype)
+    g = torch.Generator().manual_seed(5)
+    outs = {}
+    for name, fn in (("now", TM.ssd_chunked), ("parent", _ssd_chunked_parent)):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, st = fn(*leaves[:4], chunk, init_state=leaves[4])
+        if name == "now":
+            gy = torch.randn(y.shape, generator=g).to(y.dtype)
+            gs = torch.randn(st.shape, generator=g)
+        grads = torch.autograd.grad((y, st), leaves, (gy, gs))
+        outs[name] = [y, st, *grads]
+    for a, b in zip(outs["now"], outs["parent"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_ssd_chunked_peak_holds_one_lmat():
+    """Without autograd the intra-chunk product's peak holds one float32
+    (b, h, c, l, l) factor where the parent's held the exp's, its
+    rounding's float32 copy and the einsum's own: at (1, 256) x 4 heads,
+    chunk 64 (each factor 256 KiB), at least one factor less, and the same
+    values."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    ins, _ = _smoke_scan_inputs("bfloat16", L=256)
+    x, dtA, B, C, _ = ins
+    x, dtA = x[:1, :, :4], dtA[:1, :, :4]
+    B, C = B[:1].contiguous(), C[:1].contiguous()
+    x, dtA = x.contiguous(), dtA.contiguous()
+    lmat_bytes = 1 * 4 * 4 * 64 * 64 * 4
+    peaks, ys = {}, {}
+    for name, fn in (("now", TM.ssd_chunked), ("parent", _ssd_chunked_parent)):
+        mt = MemTracker()
+        with torch.no_grad(), mt:
+            ys[name] = fn(x, dtA, B, C, 64)
+        peaks[name] = max(v["Total"] for v in
+                          mt.get_tracker_snapshot("peak").values())
+    assert torch.equal(ys["now"][0], ys["parent"][0])
+    assert torch.equal(ys["now"][1], ys["parent"][1])
+    assert peaks["now"] <= peaks["parent"] - lmat_bytes, peaks
+
+
+def _split_in_joint(p, cfg, x, conv_state):
+    """``_split_in`` as it was before the conv went by channel group: one
+    conv over all of x's, B's and C's channels, then the split."""
+    import torch.nn.functional as F
+
+    di, ns = cfg.d_inner, cfg.ssm_state
+    z, xBC, dt = torch.split(x @ p["in_proj"],
+                             [di, di + 2 * ns, cfg.ssm_nheads], dim=-1)
+    xBC, new_conv = TM._causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                    conv_state)
+    xs, B, C = torch.split(F.silu(xBC), [di, ns, ns], dim=-1)
+    return z, xs, B, C, dt, new_conv
+
+
+class _OpCount(TorchDispatchMode):
+    """The aten ops dispatched in its extent that are no views: a kernel
+    launch each on the card."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        ret = func._schema.returns
+        self.n += not (ret and ret[0].alias_info is not None)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_split_in_is_bitwise_the_joint_conv(with_state):
+    """The in-projection and the conv on plain tensors (one card): bitwise
+    the parent's one conv over all channels, the new conv state too (now
+    a copy), over a sequence and one token (decode), with one aten op
+    more than the parent's (the copy): a decode step is host-bound on the
+    card, and three convs, as a mesh runs them, would add a third to its
+    launches."""
+    cfg = get_smoke_config(ARCH).replace(dtype="bfloat16")
+    params = TM.ssm_params(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(6)
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    conv = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.ssm_conv - 1, ch)).astype(np.float32)).to(torch.bfloat16)
+        if with_state else None)
+    for L in (40, 1):
+        x = torch.from_numpy(rng.standard_normal(
+            (2, L, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+        with _OpCount() as ops_joint:
+            joint = _split_in_joint(params, cfg, x, conv)
+        with _OpCount() as ops_now:
+            now = TM._split_in(params, cfg, x, conv)
+        for a, b in zip(now, joint):
+            assert a.shape == b.shape and torch.equal(a, b)
+        assert ops_now.n <= ops_joint.n + 1, (ops_now.n, ops_joint.n)
